@@ -1,0 +1,237 @@
+"""Build the port's CUDA kernels with nvcc and call them through ctypes.
+
+Each source under `lighthouse_tpu_torch/csrc/` (one per kernel family, all
+including `bls12_381.cuh`) compiles at first use into its own shared
+library with a plain C interface under `lighthouse_tpu_torch/build/`:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o build/lib<name>.so csrc/<name>.cu
+
+`build_all()` starts one nvcc per stale source at once and waits for all;
+what ptxas reports (registers, stack frame, spills) is kept beside each
+library as `<name>.ptxas.txt`. A C entry returns `cudaGetLastError()`
+after its launch and `launch()` raises on anything but 0: a refused launch
+never falls back to anything.
+
+`LAUNCHES` counts, per kernel, the launches made through the wrappers.
+"""
+
+import ctypes
+import os
+import re
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(PKG, "csrc")
+BUILD = os.path.join(PKG, "build")
+HEADER = "bls12_381.cuh"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+# source -> {C entry -> argument types}
+SOURCES = {
+    "ladder": {
+        "lh_ladder_g1": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+        "lh_ladder_g2": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+    },
+    "miller": {"lh_miller": [_P, _P, _P, _P, _P, _I, _P, _P]},
+    "final_exp": {"lh_fold_final_exp": [_P, _I, _P, _P, _P, _P, _P]},
+    "curve_helpers": {
+        "lh_lane_sum_level_g1": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
+        "lh_lane_sum_level_g2": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
+        "lh_to_affine_g1": [_P, _P, _P, _I, _P, _P, _P, _P],
+        "lh_to_affine_g2": [_P, _P, _P, _I, _P, _P, _P, _P],
+    },
+}
+
+# kernel name -> launches through its wrapper
+LAUNCHES = {
+    "ladder_g1": 0,
+    "ladder_g2": 0,
+    "miller": 0,
+    "fold_final_exp": 0,
+    "lane_sum_g1": 0,
+    "lane_sum_g2": 0,
+    "to_affine_g1": 0,
+    "to_affine_g2": 0,
+}
+
+# source -> {"seconds": build time, "ptxas": ptxas -v report}
+BUILD_LOG: dict = {}
+
+_libs: dict = {}
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def nvcc_version() -> str:
+    """nvcc's release line, e.g. 'Cuda compilation tools, release 12.8, V12.8.93'."""
+    out = subprocess.run([nvcc_path(), "--version"], check=True, capture_output=True, text=True)
+    lines = [ln.strip() for ln in out.stdout.splitlines() if "release" in ln]
+    return lines[0] if lines else out.stdout.strip()
+
+
+def lib_path(source: str) -> str:
+    return os.path.join(BUILD, f"lib{source}.so")
+
+
+def _stale(source: str) -> bool:
+    so = lib_path(source)
+    if not os.path.exists(so):
+        return True
+    built = os.path.getmtime(so)
+    deps = (os.path.join(CSRC, f"{source}.cu"), os.path.join(CSRC, HEADER))
+    return any(os.path.getmtime(d) > built for d in deps)
+
+
+def _command(source: str, out: str) -> list:
+    return [
+        nvcc_path(),
+        "-gencode", "arch=compute_90a,code=sm_90a",
+        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+        "-Xptxas", "-v",
+        "-o", out,
+        os.path.join(CSRC, f"{source}.cu"),
+    ]
+
+
+def build_all(force: bool = False) -> dict:
+    """Compile every stale source, one nvcc each, all at once; raise with
+    the compiler's output if any fails. Returns BUILD_LOG."""
+    os.makedirs(BUILD, exist_ok=True)
+    todo = [s for s in SOURCES if force or _stale(s)]
+    procs = {}
+    t0 = time.perf_counter()
+    for s in todo:
+        tmp = f"{lib_path(s)}.{os.getpid()}.tmp"
+        procs[s] = (
+            subprocess.Popen(
+                _command(s, tmp),
+                stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE,
+                text=True,
+            ),
+            tmp,
+        )
+    failed = []
+    for s, (proc, tmp) in procs.items():
+        out, err = proc.communicate()
+        BUILD_LOG[s] = {
+            "seconds": time.perf_counter() - t0,
+            "ptxas": (out or "") + (err or ""),
+        }
+        if proc.returncode != 0:
+            failed.append(f"{s}.cu:\n{out}{err}")
+            continue
+        os.replace(tmp, lib_path(s))
+        with open(os.path.join(BUILD, f"{s}.ptxas.txt"), "w") as f:
+            f.write(BUILD_LOG[s]["ptxas"])
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return BUILD_LOG
+
+
+def ptxas_summary(text: str) -> dict:
+    """ptxas -v output -> {kernel: {"registers", "stack_bytes"}} for the
+    entry functions, plus the spill bytes summed over every function."""
+    kernels = {}
+    entry = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes cumulative stack size", line)
+        if m and entry is not None:
+            kernels[entry] = {"registers": int(m.group(1)), "stack_bytes": int(m.group(2))}
+            entry = None
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
+    return {
+        "kernels": kernels,
+        "spill_store_bytes": sum(int(a) for a, _ in spills),
+        "spill_load_bytes": sum(int(b) for _, b in spills),
+    }
+
+
+def library(source: str):
+    """The loaded library of `source`, built first if stale."""
+    lib = _libs.get(source)
+    if lib is not None:
+        return lib
+    with _lock:
+        if source not in _libs:
+            if _stale(source):
+                build_all()
+            lib = ctypes.CDLL(lib_path(source))
+            for fn, argtypes in SOURCES[source].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _libs[source] = lib
+    return _libs[source]
+
+
+def check(t, name: str, shape=None, device=None) -> None:
+    """Raise unless `t` is a contiguous int32 CUDA tensor of `shape`
+    (None entries match any size) on `device`."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != torch.int32:
+        raise ValueError(f"{name}: expected int32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if shape is not None:
+        ok = len(shape) == t.dim() and all(
+            s is None or s == d for s, d in zip(shape, t.shape)
+        )
+        if not ok:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+
+
+def use_kernel(t, require_kernel: bool) -> bool:
+    """The wrappers' one dispatch rule: a CUDA tensor launches the kernel,
+    a CPU tensor runs the plain version -- unless the caller demands the
+    kernel, which a CPU tensor cannot have."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type != "cpu":
+        raise ValueError(f"unsupported device {t.device}")
+    if require_kernel:
+        raise ValueError("the CUDA kernel was requested for a CPU tensor")
+    return False
+
+
+def launch(source: str, fn: str, kernel: str, *args) -> None:
+    """Call C entry `fn` of `source` (tensors become device pointers, the
+    current stream is appended) and count one launch of `kernel`."""
+    lib = library(source)
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(dev):
+        rc = getattr(lib, fn)(*cargs, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn}: CUDA launch failed with error {rc}")
+    LAUNCHES[kernel] += 1

@@ -1,0 +1,156 @@
+"""Package rules of the port (lighthouse_tpu_torch) and of chip_smoke.py:
+
+* neither imports `jax` or anything of `lighthouse_tpu` (the port keeps its
+  own copies of what it needs) and neither reads environment knobs;
+* every kernel wrapper raises when a CPU tensor asks for its kernel, and
+  device="cuda" raises when no GPU is present: nothing falls back silently
+  to the plain versions;
+* chip_smoke.py exits non-zero, with no result line, without a GPU.
+"""
+
+import ast
+import importlib.util
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from lighthouse_tpu_torch import testing as T
+from lighthouse_tpu_torch.bls import api
+from lighthouse_tpu_torch.bls.device_pubkey_table import DevicePubkeyTable
+from lighthouse_tpu_torch.ops import cuda_build, curve_kernels, field as fd
+from lighthouse_tpu_torch.ops import final_exp, ladder, miller
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "lighthouse_tpu_torch")
+
+
+def _port_sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PKG):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+SOURCES = _port_sources()
+
+
+def _rel(path):
+    return os.path.relpath(path, ROOT)
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=_rel)
+def test_no_jax_and_no_reference_package(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    imported = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            imported.append(node.module)
+    roots = {name.split(".")[0] for name in imported}
+    assert not roots & {"jax", "jaxlib", "lighthouse_tpu"}, (_rel(path), sorted(roots))
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=_rel)
+def test_no_environment_knobs(path):
+    """One path, no LIGHTHOUSE_* style switches."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute):
+            assert node.attr not in ("environ", "getenv"), _rel(path)
+
+
+def test_every_kernel_has_a_source_and_a_counter():
+    for source, entries in cuda_build.SOURCES.items():
+        assert os.path.exists(os.path.join(cuda_build.CSRC, f"{source}.cu"))
+        assert all(e.startswith("lh_") for e in entries)
+    assert os.path.exists(os.path.join(cuda_build.CSRC, cuda_build.HEADER))
+    assert set(cuda_build.LAUNCHES) == {
+        "ladder_g1", "ladder_g2", "miller", "fold_final_exp",
+        "lane_sum_g1", "lane_sum_g2", "to_affine_g1", "to_affine_g2",
+    }
+
+
+def _point(w, B):
+    return tuple(torch.zeros((w, fd.NW, B), dtype=torch.int32) for _ in range(3))
+
+
+def _digits(B):
+    return torch.zeros((17, B), dtype=torch.int32), torch.zeros((17, B), dtype=torch.int32)
+
+
+WRAPPERS = {
+    "ladder_g1": lambda: ladder.ladder(_point(1, 4), *_digits(4), require_kernel=True),
+    "ladder_g2": lambda: ladder.ladder(_point(2, 4), *_digits(4), require_kernel=True),
+    "miller": lambda: miller.miller_loop(
+        _point(1, 4)[:2], _point(2, 4)[:2], torch.ones(4, dtype=torch.bool), require_kernel=True
+    ),
+    "fold_final_exp": lambda: final_exp.fold_final_exp(
+        torch.zeros((12, fd.NW, 4), dtype=torch.int32), require_kernel=True
+    ),
+    "lane_sum_g1": lambda: curve_kernels.lane_sum(_point(1, 4), 2, require_kernel=True),
+    "lane_sum_g2": lambda: curve_kernels.lane_sum(_point(2, 4), 2, require_kernel=True),
+    "to_affine_g1": lambda: curve_kernels.to_affine(_point(1, 4), require_kernel=True),
+    "to_affine_g2": lambda: curve_kernels.to_affine(_point(2, 4), require_kernel=True),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(WRAPPERS))
+def test_wrapper_refuses_cpu_tensor_for_kernel(kernel):
+    before = dict(cuda_build.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA kernel was requested for a CPU tensor"):
+        WRAPPERS[kernel]()
+    assert cuda_build.LAUNCHES == before
+
+
+@pytest.mark.parametrize(
+    "t, shape, why",
+    [
+        (torch.zeros((1, 12, 4), dtype=torch.int32), (1, 12, 4), "CUDA tensors"),
+        (np.zeros((1, 12, 4), np.int32), (1, 12, 4), "expected a tensor"),
+    ],
+    ids=["cpu_tensor", "numpy"],
+)
+def test_check_refuses_what_a_kernel_cannot_take(t, shape, why):
+    with pytest.raises((ValueError, TypeError), match=why):
+        cuda_build.check(t, "x", shape)
+
+
+def test_plain_path_is_taken_for_cpu_tensors_and_launches_nothing():
+    before = dict(cuda_build.LAUNCHES)
+    out = curve_kernels.to_affine(_point(1, 2))
+    assert out[2].tolist() == [True, True]  # Z = 0: the identity
+    assert cuda_build.LAUNCHES == before
+
+
+def _needs_no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: this checks the behaviour without one")
+
+
+def test_cuda_device_without_gpu_raises():
+    _needs_no_gpu()
+    sets = T.flat_sets(T.validator_pubkeys(2), 1, max_keys=1, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.verify_signature_sets(sets, seed=0, device="cuda")
+
+
+def test_cuda_table_without_gpu_raises():
+    _needs_no_gpu()
+    table = DevicePubkeyTable("cuda")
+    table.append(T.validator_pubkeys(1))
+    with pytest.raises((RuntimeError, AssertionError)):
+        table.rows()
+
+
+def test_chip_smoke_exits_nonzero_without_gpu(capsys):
+    _needs_no_gpu()
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.main() != 0
+    assert '"ok"' not in capsys.readouterr().out

@@ -20,7 +20,19 @@ non-zero without its result line:
     slot (grouped, indexed) and the flat batch verify True, a forged
     signature False, 4 sets cross-checked with the ref backend; launch
     counts are read around one run of each;
- 6. the kernels line, then {"ok": true, "device": {...}} as the last line.
+ 6. K1's chain and 2-bit window bodies against their plain versions on
+    the slot's ladder inputs, and the flat batch end to end with
+    ladder="chain" and ladder="w2" (valid True, forged False);
+ 7. per-set verdicts after a failed batch: the slot with 3 forged
+    signatures (committees 0, 31, 63) fails as a batch, then
+    verify_signature_sets_individually flags exactly those 3 -- two device
+    calls in all; K3's per-set entry against its plain version on a
+    1,024-set slice; K2 and K3 timed at the per-set shapes; the flat batch's
+    per-set check (a forged set, an infinity signature, 4 sets against the
+    ref backend);
+ 8. the tensor-core probe (lighthouse_tpu_torch.ops.mma_probe), int8 and
+    bf16, exact against the probe's numpy check and the plain version;
+ 9. the kernels line, then {"ok": true, "device": {...}} as the last line.
 
 Without a CUDA device the script exits 2 and prints no result.
 """
@@ -40,6 +52,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 INT_OPS_PER_S = 132 * 64 * 1.98e9
 # one 12-word CIOS product: 2 x 144 32x32->64 multiply-adds, lo and hi halves
 IMAD_PER_FP_PRODUCT = 2 * 144 * 2
+
+# the kernels of verify_signature_sets with the default window ladder
+BATCH_KERNELS = ("ladder_g1", "ladder_g2", "miller", "fold_final_exp",
+                 "lane_sum_g1", "lane_sum_g2", "to_affine_g1", "to_affine_g2")
 
 N_VALIDATORS = 32_768
 N_COMMITTEES = 64
@@ -63,8 +79,9 @@ def main() -> int:
     from lighthouse_tpu_torch.bls import api, gpu_backend
     from lighthouse_tpu_torch.bls.device_pubkey_table import DevicePubkeyTable
     from lighthouse_tpu_torch.ops import batch_verify as bv
-    from lighthouse_tpu_torch.ops import cuda_build, curve_kernels, field as fd
-    from lighthouse_tpu_torch.ops import final_exp, ladder, miller
+    from lighthouse_tpu_torch.ops import cuda_build, curve, curve_kernels, field as fd
+    from lighthouse_tpu_torch.ops import final_exp, ladder, miller, mma_probe
+    from lighthouse_tpu_torch.crypto.ref_curve import G2 as RG2
 
     os.makedirs(OUT, exist_ok=True)
     dev = torch.device("cuda")
@@ -118,28 +135,24 @@ def main() -> int:
         mags, negs = bv._digits(bits, dev)
         pk = bv._from_affine(bv._lanes(pk_words[0], dev), bv._lanes(pk_words[1], dev), km)
         sig = bv._from_affine(bv._lanes(m.sigs[0], dev), bv._lanes(m.sigs[1], dev), sm)
-        return m, km, sm, mags, negs, pk, sig
+        return m, km, sm, mags, negs, pk, sig, bits
 
     records = {}
 
-    def hold(name, kernel_fn, plain_fn, inputs_bytes, reps=3):
-        """Kernel vs plain on the same inputs: exact equality, times, bound."""
+    def hold(name, kernel_fn, plain_fn, inputs_bytes, reps=3, products=None, bound=None):
+        """Kernel vs plain on the same inputs: exact equality, times, bound.
+        `products` replaces the plain version's Fp product count where the
+        kernel's work depends on the data; `bound` = (ms, by) replaces the
+        Fp product bound for a kernel that is not field arithmetic."""
         out_k = kernel_fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            s.record()
-            kernel_fn()
-            e.record()
-            torch.cuda.synchronize()
-            times.append(s.elapsed_time(e))
+        kernel_ms = cuda_build.time_ms(kernel_fn, reps)
         prod0 = fd.FP_PRODUCTS
         tp0 = time.perf_counter()
         out_p = plain_fn()
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - tp0) * 1e3
-        products = fd.FP_PRODUCTS - prod0
+        if products is None:
+            products = fd.FP_PRODUCTS - prod0
         flat_k = _flatten(out_k)
         flat_p = _flatten(out_p)
         assert len(flat_k) == len(flat_p)
@@ -152,11 +165,13 @@ def main() -> int:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = products * IMAD_PER_FP_PRODUCT / INT_OPS_PER_S * 1e3
         rec = {
-            "ms": statistics.median(times), "plain_ms": plain_ms,
+            "ms": kernel_ms, "plain_ms": plain_ms,
             "max_abs_err": err, "fp_products": products, "bytes": nbytes,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         }
+        if bound is not None:
+            rec["bound_ms"], rec["bound_by"] = bound
         emit("kernel_vs_plain", kernel=name, held=err == 0, **rec)
         assert err == 0, f"{name}: kernel and plain version disagree"
         return rec
@@ -164,8 +179,9 @@ def main() -> int:
     def nb(*ts):
         return sum(t.numel() * t.element_size() for t in _flatten(ts))
 
+    ladder_inputs = {}
     for label, sets, seed in (("grouped", slot, 3), ("flat", flat, 4)):
-        m, km, sm, mags, negs, pk, sig = stage_inputs(sets, seed)
+        m, km, sm, mags, negs, pk, sig, bits = stage_inputs(sets, seed)
         S = sm.numel()
         K = m.k_bucket
         emit("shapes", batch=label, lanes=S, keys=K, windows=int(mags.shape[0]))
@@ -175,6 +191,7 @@ def main() -> int:
                 "lane_sum_g1", lambda: curve_kernels.lane_sum(pk, K),
                 lambda: curve_kernels.lane_sum_plain(pk, K), nb(pk))
         agg = curve_kernels.lane_sum(pk, K)
+        ladder_inputs[label] = {1: agg, 2: sig, "bits": bits}
         recs["ladder_g1"] = hold(
             "ladder_g1", lambda: ladder.ladder(agg, mags, negs),
             lambda: ladder.ladder_plain(agg, mags, negs), nb(agg, mags, negs))
@@ -242,16 +259,141 @@ def main() -> int:
              ref_cross_check=True, first_call_s=first_s, p50_s=p50,
              sets_per_s=len(sets) / p50, walls_s=walls, host_stats=stats,
              launches=launches)
-        missing = [k for k, v in launches.items() if v == 0]
+        missing = [k for k in BATCH_KERNELS if launches[k] == 0]
         assert not missing, f"{label}: the path launched no {missing}"
         return launches
 
     slot_launches = e2e("grouped", slot, 10)
     flat_launches = e2e("flat", flat, 20)
 
-    # --------------------------------------------------- 6. kernels line
+    # ------------------------------ 6. K1's chain and 2-bit window forms
+    group_cost = {}
+    for w in (1, 2):  # Fp products of one complete addition / doubling
+        one = curve.group(w).identity(1, dev)
+        p0 = fd.FP_PRODUCTS
+        curve.group(w).add(one, one)
+        p1 = fd.FP_PRODUCTS
+        curve.group(w).double(one)
+        group_cost[w] = {"add": p1 - p0, "dbl": fd.FP_PRODUCTS - p1}
+    inp = ladder_inputs["grouped"]
+    bits_t = torch.as_tensor(inp["bits"], device=dev).t().contiguous()  # (64, lanes)
+    n_bits, lanes = bits_t.shape
+    set_bits = int(bits_t.sum())
+    for form in ("chain", "w2"):
+        for w in (1, 2):
+            name = f"ladder_g{w}_{form}"
+            pt = inp[w]
+            # the chain adds only on set bits: count what these bits need
+            chain_products = (set_bits * group_cost[w]["add"]
+                              + lanes * (n_bits - 1) * group_cost[w]["dbl"])
+            records["grouped"][name] = hold(
+                name, lambda: ladder.ladder(pt, bits_t, form=form),
+                lambda: ladder.ladder_plain(pt, bits_t, form=form), nb(pt, bits_t),
+                products=chain_products if form == "chain" else None)
+    emit("ladder_forms", lanes=lanes, n_bits=n_bits, set_bits=set_bits, group_cost=group_cost)
+
+    form_launches = {}
+    for form in ("chain", "w2"):
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        ok = api.verify_signature_sets(flat, seed=40, device="cuda", ladder=form)
+        wall = time.perf_counter() - t0
+        form_launches[form] = dict(cuda_build.LAUNCHES)
+        forged = T.forge(flat, len(flat) // 2)
+        bad = api.verify_signature_sets(forged, seed=40, device="cuda", ladder=form)
+        emit("end_to_end_ladder_form", batch="flat", form=form, sets=len(flat), verdict=ok,
+             forged_verdict=bad, wall_s=wall, launches=form_launches[form])
+        assert ok is True and bad is False, f"flat batch with ladder={form}: wrong verdict"
+        missing = [f"ladder_g{w}_{form}" for w in (1, 2) if form_launches[form][f"ladder_g{w}_{form}"] == 0]
+        assert not missing, f"ladder={form}: the path launched no {missing}"
+
+    # ------------------------------- 7. per-set verdicts after a failure
+    # one forged signature in each of committees 0, 31 and 63
+    forged_at = [7, (N_COMMITTEES // 2 - 1) * COMMITTEE + COMMITTEE // 2,
+                 (N_COMMITTEES - 1) * COMMITTEE + COMMITTEE - 1]
+    bad_slot = slot
+    for i in forged_at:
+        bad_slot = T.forge(bad_slot, i)
+    gpu_backend.CALL_COUNTS.update(batch=0, individual=0)
+    t0 = time.perf_counter()
+    batch_ok = api.verify_signature_sets(bad_slot, seed=50, device="cuda")
+    batch_s = time.perf_counter() - t0
+    assert batch_ok is False, "slot with 3 forged signatures accepted as a batch"
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    verdicts = api.verify_signature_sets_individually(bad_slot, device="cuda")
+    first_s = time.perf_counter() - t0
+    per_set_launches = dict(cuda_build.LAUNCHES)
+    calls = dict(gpu_backend.CALL_COUNTS)
+    assert calls["batch"] + calls["individual"] == 2, calls
+    flagged = [i for i, v in enumerate(verdicts) if not v]
+    assert len(verdicts) == len(slot) and flagged == forged_at, flagged[:10]
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        assert api.verify_signature_sets_individually(bad_slot, device="cuda") == verdicts
+        walls.append(time.perf_counter() - t0)
+    per_set_stats = dict(gpu_backend.LAST_HOST_STATS)
+    missing = [k for k in ("to_affine_g1", "miller", "pair_final_exp") if per_set_launches[k] == 0]
+    assert not missing, f"per-set path launched no {missing}"
+    # K2 and K3 at the per-set shapes, K3 held on a 1,024-set slice
+    m = gpu_backend._marshal_flat(bad_slot, pow2=False)
+    g1, g2, pmask, _ = bv._individual_pairs(
+        m.msgs, m.sigs, gpu_backend._pubkeys(m, dev), m.key_mask, m.set_mask, dev)
+    S = len(bad_slot)
+    f = miller.miller_loop(g1, g2, pmask)
+    miller_ms = cuda_build.time_ms(lambda: miller.miller_loop(g1, g2, pmask))
+    pair_ms = cuda_build.time_ms(lambda: final_exp.pair_final_exp(f))
+    _, ok_all = final_exp.pair_final_exp(f)
+    assert (~ok_all).nonzero().flatten().tolist() == forged_at
+    SLICE = 1_024
+    f_slice = torch.cat([f[..., :SLICE], f[..., S:S + SLICE]], dim=-1).contiguous()
+    rec = hold("pair_final_exp", lambda: final_exp.pair_final_exp(f_slice),
+               lambda: final_exp.pair_final_exp_plain(f_slice), nb(f_slice))
+    scale = S / SLICE  # one chain per set: work and bytes grow with S
+    records["per_set"] = {
+        "pair_final_exp_slice": rec,
+        "pair_final_exp": dict(rec, ms=pair_ms, sets=S, bound_ms=rec["bound_ms"] * scale,
+                               fp_products=rec["fp_products"] * scale, bytes=rec["bytes"] * scale,
+                               plain_ms_at_sets=SLICE),
+        "miller": {"ms": miller_ms, "pairs": 2 * S},
+    }
+    emit("per_set", sets=S, forged_at=forged_at, batch_verdict=batch_ok, batch_s=batch_s,
+         flagged=flagged, device_calls=calls, first_call_s=first_s, walls_s=walls,
+         p50_s=statistics.median(walls), host_stats=per_set_stats, launches=per_set_launches,
+         miller_ms_at_pairs={2 * S: miller_ms}, pair_final_exp_ms_at_sets={S: pair_ms})
+
+    flat_bad = T.forge(flat, 512)
+    s100 = flat_bad[100]
+    flat_bad[100] = api.SignatureSet(api.Signature(RG2.infinity), s100.pubkeys, s100.message)
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    flat_verdicts = api.verify_signature_sets_individually(flat_bad, device="cuda")
+    flat_wall = time.perf_counter() - t0
+    flat_per_set_launches = dict(cuda_build.LAUNCHES)
+    assert [i for i, v in enumerate(flat_verdicts) if not v] == [100, 512]
+    ref = api.verify_signature_sets_individually(flat_bad[510:514], backend="ref")
+    assert ref == flat_verdicts[510:514] == [True, True, False, True], ref
+    emit("per_set", batch="flat", sets=len(flat_bad), flagged=[100, 512], ref_cross_check=True,
+         wall_s=flat_wall, host_stats=dict(gpu_backend.LAST_HOST_STATS),
+         launches=flat_per_set_launches)
+
+    # ------------------------------------------- 8. tensor-core probe
+    cuda_build.reset_launches()
+    probe = {form: mma_probe.probe(form, dev) for form in mma_probe.FORMS}
+    probe_launches = dict(cuda_build.LAUNCHES)
+    for form, prec in probe.items():
+        emit("mma_probe", **prec, launches=probe_launches[f"mma_probe_{form}"])
+        assert prec["exact"], f"mma_probe {form}: not exact"
+        M, X = mma_probe.operands(*mma_probe.probe_inputs(), form, dev)
+        rec = hold(f"mma_probe_{form}", lambda: mma_probe.contract(M, X, form, require_kernel=True),
+                   lambda: mma_probe.contract_plain(M, X), nb(M, X), bound=mma_probe.bound(form))
+        records.setdefault("probe", {})[f"mma_probe_{form}"] = dict(rec, library_ms=prec["library_ms"])
+
+    # --------------------------------------------------- 9. kernels line
     csrc = "lighthouse_tpu_torch/csrc/"
     helper = "a step that is XLA on the TPU, outside any Pallas kernel"
+    forms_note = "slot ladder inputs; launches from the flat batch with ladder={}"
     meta = {  # name -> (source, what it replaces, note)
         "ladder_g1": (csrc + "ladder.cu", "lighthouse_tpu/ops/pallas_ladder.py:101", None),
         "ladder_g2": (csrc + "ladder.cu", "lighthouse_tpu/ops/pallas_ladder.py:101", None),
@@ -261,18 +403,43 @@ def main() -> int:
         "lane_sum_g2": (csrc + "curve_helpers.cu", "lighthouse_tpu/ops/tcurve.py:201", helper),
         "to_affine_g1": (csrc + "curve_helpers.cu", "lighthouse_tpu/ops/curve.py:630", helper),
         "to_affine_g2": (csrc + "curve_helpers.cu", "lighthouse_tpu/ops/curve.py:630", helper),
+        "ladder_g1_chain": (csrc + "ladder.cu", "lighthouse_tpu/ops/pallas_ladder.py:59",
+                            forms_note.format("chain")),
+        "ladder_g2_chain": (csrc + "ladder.cu", "lighthouse_tpu/ops/pallas_ladder.py:59",
+                            forms_note.format("chain")),
+        "ladder_g1_w2": (csrc + "ladder.cu", "lighthouse_tpu/ops/pallas_ladder.py:77",
+                         forms_note.format("w2")),
+        "ladder_g2_w2": (csrc + "ladder.cu", "lighthouse_tpu/ops/pallas_ladder.py:77",
+                         forms_note.format("w2")),
+        "pair_final_exp": (csrc + "final_exp.cu", "lighthouse_tpu/ops/pallas_tail.py:58",
+                           "per-set entry at the slot's sets; held and plain_ms on a 1,024-set slice"),
+        "mma_probe_i8": (csrc + "mma_probe.cu", "scripts/probe_mxu_forms.py:67", None),
+        "mma_probe_bf16": (csrc + "mma_probe.cu", "scripts/probe_mxu_forms.py:67", None),
     }
     kernels = []
     for name, (source, replaces, note) in meta.items():
-        rec = records["grouped"][name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": slot_launches[name], "max_abs_err": rec["max_abs_err"],
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
+        if name in records["grouped"] and not name.endswith(("_chain", "_w2")):
+            rec, launches = records["grouped"][name], slot_launches[name]
+            entry["flat"] = {k: records["flat"][name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")} | {
+                "launches": flat_launches[name]}
+        elif name.endswith(("_chain", "_w2")):
+            form = name.rsplit("_", 1)[1]
+            rec, launches = records["grouped"][name], form_launches[form][name]
+        elif name == "pair_final_exp":
+            rec, launches = records["per_set"][name], per_set_launches[name]
+            entry["slice"] = records["per_set"]["pair_final_exp_slice"]
+        else:
+            rec, launches = records["probe"][name], probe_launches[name]
+        entry.update({
+            "launches": launches, "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": None, "held": True, "note": note,
-            "flat": {k: records["flat"][name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
-            | {"launches": flat_launches[name]},
+            "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms"), "held": True,
+            "note": note,
         })
+        if name == "miller":
+            entry["per_set"] = records["per_set"]["miller"] | {"launches": per_set_launches[name]}
+        kernels.append(entry)
     with open(os.path.join(OUT, "chip_smoke_records.json"), "w") as f:
         json.dump({"records": records, "kernels": kernels, "smi": smi}, f, indent=1)
     print(smi, flush=True)

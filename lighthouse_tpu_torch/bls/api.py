@@ -9,6 +9,9 @@ The slice of `lighthouse_tpu/bls/api.py` that batch verification needs:
            `device="cpu"`;
   "ref" -- an independent pure-Python pairing check per set (ground truth).
 
+`verify_signature_sets_individually` gives one verdict per set, the
+fallback after a failed batch: one more device call on "gpu".
+
 Policy kept from the reference client: pubkeys are validated when decoded
 (on curve, not infinity, in the subgroup); signatures are subgroup-checked
 at verification, once per signature through the `_subgroup_ok` memo; an
@@ -144,10 +147,16 @@ def _verify_one_ref(sset: SignatureSet) -> bool:
 
 
 def verify_signature_sets(
-    sets, seed: int | None = None, device: str = "cuda", backend: str = "gpu"
+    sets,
+    seed: int | None = None,
+    device: str = "cuda",
+    backend: str = "gpu",
+    ladder: str = "window",
 ) -> bool:
     """Batch-verify signature sets; an empty batch fails. `seed` makes the
-    RLC scalars deterministic (tests); production draws them from the OS."""
+    RLC scalars deterministic (tests); production draws them from the OS.
+    `ladder` picks K1's body on "gpu" ("window", "chain" or "w2"), which
+    leaves the verdict as it is."""
     sets = list(sets)
     if not sets:
         return False
@@ -156,5 +165,23 @@ def verify_signature_sets(
     if backend == "gpu":
         from lighthouse_tpu_torch.bls.gpu_backend import verify_signature_sets_gpu
 
-        return verify_signature_sets_gpu(sets, seed=seed, device=device)
+        return verify_signature_sets_gpu(sets, seed=seed, device=device, ladder=ladder)
+    raise BlsError(f"unknown BLS backend {backend!r}")
+
+
+def verify_signature_sets_individually(
+    sets, device: str = "cuda", backend: str = "gpu"
+) -> list:
+    """Per-set verdicts, to find the bad sets of a failed batch: on "gpu"
+    one device call for the whole list (a failed batch plus this call is two
+    calls), on "ref" the per-set host check. Empty input -> []."""
+    sets = list(sets)
+    if not sets:
+        return []
+    if backend == "ref":
+        return [_verify_one_ref(s) for s in sets]
+    if backend == "gpu":
+        from lighthouse_tpu_torch.bls.gpu_backend import verify_signature_sets_gpu_individual
+
+        return verify_signature_sets_gpu_individual(sets, device=device)
     raise BlsError(f"unknown BLS backend {backend!r}")

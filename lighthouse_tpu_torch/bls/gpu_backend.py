@@ -14,7 +14,13 @@ The port of `lighthouse_tpu/bls/tpu_backend.py`'s batch path. The host:
   * ships table row indices instead of points when every pubkey is
     registered in one `DevicePubkeyTable`;
   * samples 64-bit RLC scalars, and dispatches one device batch
-    (`ops/batch_verify.py`) on `device`.
+    (`ops/batch_verify.py`) on `device`, with K1's `ladder` form.
+
+`verify_signature_sets_gpu_individual` is the per-set fallback after a
+failed batch (`tpu_backend.verify_signature_sets_tpu_individual`): the
+signature policy per set (a bad signature is False for its set and never
+reaches the device), then the live sets laid out flat, unpadded, in one
+device call.
 
 `device="cuda"` runs the CUDA kernels and raises when there is no GPU;
 `device="cpu"` runs their plain PyTorch versions (the tests).
@@ -35,8 +41,8 @@ from lighthouse_tpu_torch.ops import batch_verify, field as fd
 # host/device split of the last dispatched batch
 LAST_HOST_STATS: dict = {}
 
-# device batches dispatched
-CALL_COUNTS = {"batch": 0}
+# device calls dispatched: RLC batches and per-set fallbacks
+CALL_COUNTS = {"batch": 0, "individual": 0}
 
 
 def _bucket(n: int, minimum: int) -> int:
@@ -238,12 +244,14 @@ def _marshal_grouped(sets, groups) -> _Marshalled:
     return m
 
 
-def _marshal_flat(sets) -> _Marshalled:
+def _marshal_flat(sets, pow2: bool = True) -> _Marshalled:
+    """One lane per set; padded to a power of two (at least 4) for the RLC
+    lane folds, or left at len(sets) (`pow2=False`, the per-set path)."""
     t0 = time.perf_counter()
     n_sets = len(sets)
     m = _Marshalled()
     m.grouped, m.n_groups, m.group_mask = False, None, None
-    m.s_bucket = _bucket(n_sets, 4)
+    m.s_bucket = _bucket(n_sets, 4) if pow2 else n_sets
     m.k_bucket = _bucket(max(len(s.pubkeys) for s in sets), 1)
     pad = [None] * (m.s_bucket - n_sets)
     msgs = [_msg_affine(s.message) for s in sets] + pad
@@ -262,24 +270,30 @@ def _marshal_flat(sets) -> _Marshalled:
 # ---------------------------------------------------------------- dispatch
 
 
-def _dispatch(m, rand_bits, device) -> bool:
+def _pubkeys(m, device):
+    """The batch's key words: gathered from its table on `device`, or the
+    packed points."""
+    if m.table is None:
+        return m.pubkeys
+    if m.table.device != device:
+        raise ValueError(f"pubkey table on {m.table.device}, batch on {device}")
+    return m.table.gather(m.indices)
+
+
+def _dispatch(m, rand_bits, device, ladder="window") -> bool:
     """Run one marshalled batch on `device`; returns the verdict."""
     CALL_COUNTS["batch"] += 1
-    if m.table is not None:
-        if m.table.device != device:
-            raise ValueError(f"pubkey table on {m.table.device}, batch on {device}")
-        pubkeys = m.table.gather(m.indices)
-    else:
-        pubkeys = m.pubkeys
+    pubkeys = _pubkeys(m, device)
     if m.grouped:
         ok = batch_verify.verify_signature_sets_grouped(
             m.msgs, m.sigs, pubkeys, m.key_mask,
             rand_bits.reshape(m.set_mask.shape + (batch_verify.RAND_BITS,)),
-            m.set_mask, m.group_mask, device=device,
+            m.set_mask, m.group_mask, device=device, ladder=ladder,
         )
     else:
         ok = batch_verify.verify_signature_sets(
-            m.msgs, m.sigs, pubkeys, m.key_mask, rand_bits, m.set_mask, device=device
+            m.msgs, m.sigs, pubkeys, m.key_mask, rand_bits, m.set_mask,
+            device=device, ladder=ladder,
         )
     return bool(ok)
 
@@ -293,21 +307,12 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def verify_signature_sets_gpu(sets, seed: int | None = None, device="cuda") -> bool:
-    dev = resolve_device(device)
-    t_start = time.perf_counter()
-    if not all(signature_ok(s.signature) for s in sets):
-        return False
-    t_subgroup = time.perf_counter()
-    m = _marshal(sets)
-    rand_bits = _scalar_bits(_rlc_scalars(m.s_bucket, seed))
-    t_marshal = time.perf_counter()
-    result = _dispatch(m, rand_bits, dev)
-    t_end = time.perf_counter()
+def _record_stats(n_sets, m, t_start, t_subgroup, t_marshal, t_end, individual) -> None:
     LAST_HOST_STATS.clear()
     LAST_HOST_STATS.update(
         {
-            "n_sets": len(sets),
+            "n_sets": n_sets,
+            "individual": individual,
             "indexed_path": m.table is not None,
             "grouped": bool(m.grouped),
             "n_groups": m.n_groups,
@@ -318,4 +323,42 @@ def verify_signature_sets_gpu(sets, seed: int | None = None, device="cuda") -> b
             "device_ms": (t_end - t_marshal) * 1e3,
         }
     )
+
+
+def verify_signature_sets_gpu(
+    sets, seed: int | None = None, device="cuda", ladder: str = "window"
+) -> bool:
+    dev = resolve_device(device)
+    t_start = time.perf_counter()
+    if not all(signature_ok(s.signature) for s in sets):
+        return False
+    t_subgroup = time.perf_counter()
+    m = _marshal(sets)
+    rand_bits = _scalar_bits(_rlc_scalars(m.s_bucket, seed))
+    t_marshal = time.perf_counter()
+    result = _dispatch(m, rand_bits, dev, ladder)
+    _record_stats(len(sets), m, t_start, t_subgroup, t_marshal, time.perf_counter(), False)
     return result
+
+
+def verify_signature_sets_gpu_individual(sets, device="cuda") -> list:
+    """Per-set verdicts in one device call: False for a set whose signature
+    fails the policy (infinity, not in the subgroup) without device work,
+    the pairing check of each other set on `device`."""
+    dev = resolve_device(device)
+    t_start = time.perf_counter()
+    live = [i for i, s in enumerate(sets) if signature_ok(s.signature)]
+    verdicts = [False] * len(sets)
+    if not live:
+        return verdicts
+    t_subgroup = time.perf_counter()
+    m = _marshal_flat([sets[i] for i in live], pow2=False)
+    t_marshal = time.perf_counter()
+    CALL_COUNTS["individual"] += 1
+    ok = batch_verify.verify_signature_sets_individual(
+        m.msgs, m.sigs, _pubkeys(m, dev), m.key_mask, m.set_mask, device=dev
+    ).tolist()
+    for j, i in enumerate(live):
+        verdicts[i] = bool(ok[j])
+    _record_stats(len(sets), m, t_start, t_subgroup, t_marshal, time.perf_counter(), True)
+    return verdicts

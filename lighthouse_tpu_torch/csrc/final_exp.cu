@@ -1,30 +1,44 @@
-// K3 -- product fold of the per-pair Miller outputs and the final
-// exponentiation f^(3 (p^12 - 1) / r), one launch, returning the Fp12 value
-// and the verdict (value == 1).
+// K3 -- the final exponentiation f^(3 (p^12 - 1) / r), in two entries:
+//   fold     -- the product fold of the per-pair Miller outputs, then one
+//               exponentiation: the Fp12 value and the verdict (value == 1)
+//               of a whole RLC batch;
+//   per set  -- for the per-set verdicts after a failed batch: set i's two
+//               Miller values f[i] and f[S + i] multiplied, exponentiated,
+//               compared with 1, one thread per set.
 //
 // Replaces the TPU kernel lighthouse_tpu/ops/pallas_tail.py `_kernel`
 // (reached through `final_exp_pallas` / `fold_final_exp_pallas`, which put
 // the XLA lane fold `tfexp.fold_lanes` in front). On the TPU the fold stays
-// at XLA level; the port has no XLA, so the fold is in this kernel too.
+// at XLA level; the port has no XLA, so the fold is in this kernel too. The
+// per-set entry is the counterpart of the JAX per-set tail,
+// `tower.fp12_mul(f[:S], f[S:])` then `pairing.final_exponentiation`
+// (ops/batch_verify.py `verify_signature_sets_individual`), which uses the
+// same exponent, so values agree as well as verdicts.
 //
 // What bounds it on the H100: the latency of one thread's chain. The fold
 // is B - 1 Fp12 products spread over one block (log2 B dependent levels);
 // the exponentiation is ~320 Fp12 squarings, ~40 Fp12 products, one Fp12
 // inversion (a 381-bit Fermat chain in Fp) and four Frobenius maps, all
-// dependent, on one thread: ~14k Fp products one after another.
+// dependent, on one thread: ~14k Fp products one after another. The per-set
+// entry runs S such chains side by side, one per thread; at a slot's 30,720
+// sets they fill the card (one wave of 64-thread blocks at 255 registers),
+// so its time is bounded by the card's multiply rate, ~15 ms for the
+// ~4e8 Fp products, and in practice by the chains' local-memory traffic.
 //
-// Design: one block. The fold walks the lane-halving tree of
-// tfexp.fold_lanes (product of lanes i and i + half, an odd count carries
-// its last lane), level by level between two scratch buffers in device
-// memory, with a block barrier between levels; then thread 0 runs the
-// addition chain of tfexp.final_exponentiation_t -- the exponent is
-// 3 (p^12 - 1) / r, not the textbook (p^12 - 1) / r, so the value equals the
-// JAX package's bit for bit. The single-thread tail is slow by design and
-// stays so in this first port.
+// Design: the addition chain of tfexp.final_exponentiation_t exists once,
+// as the __device__ function `final_exponentiation`, which both entries
+// call -- the exponent is 3 (p^12 - 1) / r, not the textbook (p^12 - 1) / r,
+// so the value equals the JAX package's bit for bit. The fold entry runs
+// one block: it walks the lane-halving tree of tfexp.fold_lanes (product of
+// lanes i and i + half, an odd count carries its last lane), level by level
+// between two scratch buffers in device memory, with a block barrier
+// between levels; then thread 0 runs the chain. Its single-thread tail is
+// slow by design and stays so in this port. The per-set entry is one
+// thread per set, 64 threads a block.
 //
-// ptxas -v (nvcc 12.9, sm_90a): 255 registers, 0 bytes of register spills,
-// an 8,592-byte per-thread stack frame in local memory (the Fp12
-// temporaries of the chain), one block barrier.
+// ptxas -v (nvcc 12.9, sm_90a), fold entry: 255 registers, 0 bytes of
+// register spills, an 8,592-byte per-thread stack frame in local memory
+// (the Fp12 temporaries of the chain), one block barrier.
 
 #include <cuda_runtime.h>
 
@@ -125,5 +139,27 @@ extern "C" int lh_fold_final_exp(const void* f_in, int B, void* buf_a,
   fold_final_exp_kernel<<<1, 128, 0, (cudaStream_t)stream>>>(
       (const int32_t*)f_in, B, (int32_t*)buf_a, (int32_t*)buf_b,
       (int32_t*)out, (int32_t*)verdict);
+  return (int)cudaGetLastError();
+}
+
+__global__ void pair_final_exp_kernel(const int32_t* __restrict__ f_in, int S,
+                                      int32_t* out, int32_t* verdicts) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= S) return;
+  Fp12 a, b;
+  fp12_load(a, f_in, i, 2 * S);
+  fp12_load(b, f_in, S + i, 2 * S);
+  fp12_mul(a, a, b);
+  final_exponentiation(b, a);
+  fp12_store(out, i, S, b);
+  verdicts[i] = fp12_is_one(b) ? 1 : 0;
+}
+
+extern "C" int lh_pair_final_exp(const void* f_in, int S, void* out,
+                                 void* verdicts, void* stream) {
+  const int threads = 64;
+  const int blocks = (S + threads - 1) / threads;
+  pair_final_exp_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)f_in, S, (int32_t*)out, (int32_t*)verdicts);
   return (int)cudaGetLastError();
 }

@@ -25,6 +25,16 @@ Pair masks follow `_assemble_pairs`: a set whose RLC'd aggregate key is the
 identity is masked (e(inf, H) == 1); padding sets enter as the identity and
 pass; a forged signature still breaks the product through the signature
 pair.
+
+`ladder` picks K1's body for both RLC ladders ("window", the default;
+"chain" and "w2", the A/B forms of `pallas_ladder.ladder_pallas`); the
+bodies reach the same points by different projective representatives, so
+the affine points and the verdict do not depend on it.
+
+`verify_signature_sets_individual` is the per-set fallback after a failed
+batch: no RLC and no ladder, 2 S Miller pairs (agg_pk_i, H_i) and
+(-G1, sig_i), then K3's per-set entry -- one verdict per set in one device
+call.
 """
 
 import numpy as np
@@ -32,7 +42,8 @@ import torch
 
 from lighthouse_tpu_torch.crypto.constants import G1_X, G1_Y, P
 from lighthouse_tpu_torch.ops import curve_kernels, field as fd
-from lighthouse_tpu_torch.ops import final_exp, ladder, miller
+from lighthouse_tpu_torch.ops import final_exp, miller
+from lighthouse_tpu_torch.ops import ladder as k1
 from lighthouse_tpu_torch.ops import window_ladder as wl
 
 NW = fd.NW
@@ -67,9 +78,13 @@ def _from_affine(x, y, valid):
     )
 
 
-def _digits(rand_bits, device):
-    """(..., 64) RLC bits -> window-major int32 digits (W, N)."""
+def _digits(rand_bits, device, form="window"):
+    """(..., 64) RLC bits -> K1's operands for `form`: window-major int32
+    digits (W, N) and signs (W, N) for "window", the (64, N) LSB-first bits
+    for "chain" and "w2"."""
     bits = torch.as_tensor(rand_bits, device=device).reshape(-1, RAND_BITS)
+    if form != "window":
+        return (bits.t().to(torch.int32).contiguous(),)
     mags, negs = wl.recode_bits(bits)
     return mags.contiguous(), negs.to(torch.int32).contiguous()
 
@@ -98,27 +113,34 @@ def _verdict(g1, g2, mask):
     return ok
 
 
-def _signature_side(sigs, set_mask, mags, negs, device):
+def _signature_side(sigs, set_mask, digits, form, device):
     """sum_i r_i * sig_i as an affine point (x, y, is_identity)."""
     sig = _from_affine(_lanes(sigs[0], device), _lanes(sigs[1], device), set_mask)
-    sig_r = ladder.ladder(sig, mags, negs)
+    sig_r = k1.ladder(sig, *digits, form=form)
     acc = curve_kernels.lane_sum(sig_r, _pow2(sig_r[0].shape[-1], "signature lanes"))
     return curve_kernels.to_affine(acc)
 
 
-def verify_signature_sets(msgs, sigs, pubkeys, key_mask, rand_bits, set_mask, device="cuda"):
+def _aggregate_keys(pubkeys, key_mask, device):
+    """Per-set aggregate over the K key lanes s*K + k (K a power of two):
+    projective (1, 12, S)."""
+    K = np.shape(key_mask)[-1]
+    km = _mask(key_mask, device)
+    pk = _from_affine(_lanes(pubkeys[0], device), _lanes(pubkeys[1], device), km)
+    return curve_kernels.lane_sum(pk, _pow2(K, "K"))
+
+
+def verify_signature_sets(
+    msgs, sigs, pubkeys, key_mask, rand_bits, set_mask, device="cuda", ladder="window"
+):
     """Flat layout: msgs/sigs (S, 2, 12) x and y, pubkeys (S, K, 1, 12) x and
     y, key_mask (S, K), rand_bits (S, 64), set_mask (S,). S and K powers of
     two. Returns a bool tensor: True iff every real set verifies."""
-    S, K = np.shape(key_mask)
-    km = _mask(key_mask, device)
     sm = _mask(set_mask, device)
-    mags, negs = _digits(rand_bits, device)
-    # per-set aggregate over the K key lanes s*K + k, then the G1 ladder
-    pk = _from_affine(_lanes(pubkeys[0], device), _lanes(pubkeys[1], device), km)
-    agg = curve_kernels.lane_sum(pk, _pow2(K, "K"))
-    pk_aff = curve_kernels.to_affine(ladder.ladder(agg, mags, negs))
-    sig_aff = _signature_side(sigs, sm, mags, negs, device)
+    digits = _digits(rand_bits, device, ladder)
+    agg = _aggregate_keys(pubkeys, key_mask, device)
+    pk_aff = curve_kernels.to_affine(k1.ladder(agg, *digits, form=ladder))
+    sig_aff = _signature_side(sigs, sm, digits, ladder, device)
     g1, g2, mask = _assemble_pairs(
         _lanes(msgs[0], device), _lanes(msgs[1], device), sm, pk_aff, sig_aff
     )
@@ -126,24 +148,51 @@ def verify_signature_sets(msgs, sigs, pubkeys, key_mask, rand_bits, set_mask, de
 
 
 def verify_signature_sets_grouped(
-    group_msgs, sigs, pubkeys, key_mask, rand_bits, set_mask, group_mask, device="cuda"
+    group_msgs, sigs, pubkeys, key_mask, rand_bits, set_mask, group_mask,
+    device="cuda", ladder="window",
 ):
     """Message-grouped layout: group_msgs (G, 2, 12), sigs (G, Sg, 2, 12),
     pubkeys (G, Sg, K, 1, 12), key_mask (G, Sg, K), rand_bits (G, Sg, 64),
     set_mask (G, Sg), group_mask (G,); G, Sg and K powers of two."""
-    G, Sg, K = np.shape(key_mask)
-    km = _mask(key_mask, device)
+    Sg = np.shape(key_mask)[1]
     sm = _mask(set_mask, device)
     gm = _mask(group_mask, device)
-    mags, negs = _digits(rand_bits, device)
-    pk = _from_affine(_lanes(pubkeys[0], device), _lanes(pubkeys[1], device), km)
-    agg = curve_kernels.lane_sum(pk, _pow2(K, "K"))
-    pk_r = ladder.ladder(agg, mags, negs)
+    digits = _digits(rand_bits, device, ladder)
+    pk_r = k1.ladder(_aggregate_keys(pubkeys, key_mask, device), *digits, form=ladder)
     # fold each group's RLC'd keys into one point per message
     grp = curve_kernels.lane_sum(pk_r, _pow2(Sg, "Sg"))
     pk_aff = curve_kernels.to_affine(grp)
-    sig_aff = _signature_side(sigs, sm, mags, negs, device)
+    sig_aff = _signature_side(sigs, sm, digits, ladder, device)
     g1, g2, mask = _assemble_pairs(
         _lanes(group_msgs[0], device), _lanes(group_msgs[1], device), gm, pk_aff, sig_aff
     )
     return _verdict(g1, g2, mask)
+
+
+def _individual_pairs(msgs, sigs, pubkeys, key_mask, set_mask, device):
+    """The 2 S Miller pairs of the per-set check: (agg_pk_i, H_i) for
+    i < S, then (-G1, sig_i); pair mask set_mask & ~pk_inf, then set_mask.
+    Returns (g1, g2, pair mask, set mask)."""
+    S = np.shape(key_mask)[0]
+    sm = _mask(set_mask, device)
+    pk_x, pk_y, pk_inf = curve_kernels.to_affine(_aggregate_keys(pubkeys, key_mask, device))
+    dev = pk_x.device
+    ng = [torch.as_tensor(c, device=dev).reshape(1, NW, 1).expand(1, NW, S) for c in NEG_G1_AFFINE]
+    g1 = (torch.cat([pk_x, ng[0]], dim=-1), torch.cat([pk_y, ng[1]], dim=-1))
+    g2 = (
+        torch.cat([_lanes(msgs[0], device), _lanes(sigs[0], device)], dim=-1),
+        torch.cat([_lanes(msgs[1], device), _lanes(sigs[1], device)], dim=-1),
+    )
+    # e(inf, .) == 1 exactly; a padding set contributes 1 to both its pairs
+    return g1, g2, torch.cat([sm & ~pk_inf, sm]), sm
+
+
+def verify_signature_sets_individual(msgs, sigs, pubkeys, key_mask, set_mask, device="cuda"):
+    """Per-set verdicts in one device call (batch_verify.
+    verify_signature_sets_individual): set i passes iff
+    e(agg_pk_i, H_i) * e(-G1, sig_i) == 1. Flat inputs as in
+    `verify_signature_sets` without the RLC bits; S any size, K a power of
+    two. Returns (S,) bool, padding sets True."""
+    g1, g2, mask, sm = _individual_pairs(msgs, sigs, pubkeys, key_mask, set_mask, device)
+    _, ok = final_exp.pair_final_exp(miller.miller_loop(g1, g2, mask))
+    return ok | ~sm

@@ -1,7 +1,7 @@
 """Build the port's CUDA kernels with nvcc and call them through ctypes.
 
-Each source under `lighthouse_tpu_torch/csrc/` (one per kernel family, all
-including `bls12_381.cuh`) compiles at first use into its own shared
+Each source under `lighthouse_tpu_torch/csrc/` (one per kernel family; all
+but the tensor-core probe include `bls12_381.cuh`) compiles at first use into its own shared
 library with a plain C interface under `lighthouse_tpu_torch/build/`:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -13,13 +13,15 @@ library as `<name>.ptxas.txt`. A C entry returns `cudaGetLastError()`
 after its launch and `launch()` raises on anything but 0: a refused launch
 never falls back to anything.
 
-`LAUNCHES` counts, per kernel, the launches made through the wrappers.
+`LAUNCHES` counts, per kernel, the launches made through the wrappers;
+`time_ms` times a call on the card with CUDA events.
 """
 
 import ctypes
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import threading
 import time
@@ -39,14 +41,25 @@ SOURCES = {
     "ladder": {
         "lh_ladder_g1": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
         "lh_ladder_g2": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+        "lh_ladder_g1_chain": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+        "lh_ladder_g2_chain": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+        "lh_ladder_g1_w2": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+        "lh_ladder_g2_w2": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     },
     "miller": {"lh_miller": [_P, _P, _P, _P, _P, _I, _P, _P]},
-    "final_exp": {"lh_fold_final_exp": [_P, _I, _P, _P, _P, _P, _P]},
+    "final_exp": {
+        "lh_fold_final_exp": [_P, _I, _P, _P, _P, _P, _P],
+        "lh_pair_final_exp": [_P, _I, _P, _P, _P],
+    },
     "curve_helpers": {
         "lh_lane_sum_level_g1": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
         "lh_lane_sum_level_g2": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
         "lh_to_affine_g1": [_P, _P, _P, _I, _P, _P, _P, _P],
         "lh_to_affine_g2": [_P, _P, _P, _I, _P, _P, _P, _P],
+    },
+    "mma_probe": {
+        "lh_mma_probe_i8": [_P, _P, _I, _I, _I, _I, _P, _P],
+        "lh_mma_probe_bf16": [_P, _P, _I, _I, _I, _I, _P, _P],
     },
 }
 
@@ -54,12 +67,19 @@ SOURCES = {
 LAUNCHES = {
     "ladder_g1": 0,
     "ladder_g2": 0,
+    "ladder_g1_chain": 0,
+    "ladder_g2_chain": 0,
+    "ladder_g1_w2": 0,
+    "ladder_g2_w2": 0,
     "miller": 0,
     "fold_final_exp": 0,
+    "pair_final_exp": 0,
     "lane_sum_g1": 0,
     "lane_sum_g2": 0,
     "to_affine_g1": 0,
     "to_affine_g2": 0,
+    "mma_probe_i8": 0,
+    "mma_probe_bf16": 0,
 }
 
 # source -> {"seconds": build time, "ptxas": ptxas -v report}
@@ -161,9 +181,11 @@ def ptxas_summary(text: str) -> dict:
         if m:
             entry = m.group(1)
             continue
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes cumulative stack size", line)
+        m = re.search(r"Used (\d+) registers", line)
         if m and entry is not None:
-            kernels[entry] = {"registers": int(m.group(1)), "stack_bytes": int(m.group(2))}
+            stack = re.search(r"(\d+) bytes cumulative stack size", line)
+            kernels[entry] = {"registers": int(m.group(1)),
+                              "stack_bytes": int(stack.group(1)) if stack else 0}
             entry = None
     spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
     return {
@@ -190,17 +212,17 @@ def library(source: str):
     return _libs[source]
 
 
-def check(t, name: str, shape=None, device=None) -> None:
-    """Raise unless `t` is a contiguous int32 CUDA tensor of `shape`
-    (None entries match any size) on `device`."""
+def check(t, name: str, shape=None, device=None, dtype=torch.int32) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` (int32 unless
+    said otherwise) and `shape` (None entries match any size) on `device`."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.device.type != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got {t.device}")
     if device is not None and t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.int32:
-        raise ValueError(f"{name}: expected int32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
     if shape is not None:
@@ -235,3 +257,19 @@ def launch(source: str, fn: str, kernel: str, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{fn}: CUDA launch failed with error {rc}")
     LAUNCHES[kernel] += 1
+
+
+def time_ms(fn, reps: int = 3) -> float:
+    """Median CUDA-event time of one call of `fn` over `reps` calls, after
+    one warm-up call; each call is synchronised."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)

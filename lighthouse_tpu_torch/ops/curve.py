@@ -142,6 +142,28 @@ class Projective:
         x3, y3, z3 = self._combo(prods, self.DBL_C3, 3)
         return (x3, y3, z3)
 
+    # ------------------------------------- the chain and the 2-bit window
+
+    def ladder_step(self, acc, addend, bit):
+        """One double-add step: acc += addend where bit == 1, the addend
+        doubles (tcurve.ladder_step). bit (B,) int."""
+        acc = self.select(bit == 1, self.add(acc, addend), acc)
+        return acc, self.double(addend)
+
+    def window2_table(self, pt):
+        """{identity, P, 2P, 3P} (tcurve.window2_table)."""
+        p2 = self.double(pt)
+        return (self.identity(pt[0].shape[-1], pt[0].device), pt, p2, self.add(p2, pt))
+
+    def window2_step(self, acc, table, digit):
+        """acc <- 4 acc + table[digit], digit (B,) in 0..3: two doublings,
+        the select tree of tcurve.window2_step, one complete addition (digit
+        0 adds the identity entry, no branch)."""
+        acc = self.double(self.double(acc))
+        t01 = self.select(digit == 1, table[1], table[0])
+        t23 = self.select(digit == 3, table[3], table[2])
+        return self.add(acc, self.select(digit >= 2, t23, t01))
+
     # ------------------------------------------- signed-digit windows
 
     def window_table(self, pt, c: int):

@@ -1,31 +1,40 @@
-"""K3: product fold + final exponentiation -- wrapper and plain version.
+"""K3: final exponentiation, two entries -- wrappers and plain versions.
 
-Replaces the TPU kernel `lighthouse_tpu/ops/pallas_tail.py` `_kernel`
-(with the XLA lane fold that `fold_final_exp_pallas` puts in front of it).
-The CUDA source is `lighthouse_tpu_torch/csrc/final_exp.cu`; the plain
-version is the port of `tfexp.fold_lanes` + `tfexp.final_exponentiation_t`.
+Replaces the TPU kernel `lighthouse_tpu/ops/pallas_tail.py` `_kernel`.
+The CUDA source is `lighthouse_tpu_torch/csrc/final_exp.cu`.
 
-Operands are kernel words: the per-pair Miller values f (12, 12, B) in; the
-final-exponentiated product (12, 12, 1) and the verdict (value == 1) out.
+  `fold_final_exp` -- the batch verdict: the product fold of the per-pair
+      Miller values (the XLA lane fold that `fold_final_exp_pallas` puts in
+      front of the kernel), then one exponentiation; plain version the port
+      of `tfexp.fold_lanes` + `tfexp.final_exponentiation_t`.
+  `pair_final_exp` -- per-set verdicts: set i's Miller values f[i] and
+      f[S + i] multiplied and exponentiated, one value and verdict per set;
+      plain version the port of the JAX per-set tail
+      (`batch_verify.verify_signature_sets_individual`: `tower.fp12_mul`
+      then `pairing.final_exponentiation`, the same exponent).
+
+Operands are kernel words: Miller values f (12, 12, B) in; final-
+exponentiated values (12, 12, 1) or (12, 12, S) and verdicts (value == 1)
+out.
 """
 
 import torch
 
 from lighthouse_tpu_torch.ops import cuda_build, field as fd
-from lighthouse_tpu_torch.ops import tfexp
+from lighthouse_tpu_torch.ops import tfexp, tpairing as tp
 
 
 def is_one(value):
-    """(12, 12, 1) words -> bool tensor: the Fp12 value equals 1."""
+    """(12, 12, B) words -> (B,) bool tensor: each Fp12 value equals 1."""
     one = torch.zeros_like(value)
-    one[0, :, 0] = torch.tensor(fd.mont_words([1])[0], device=value.device)
-    return (value == one).all()
+    one[0] = torch.tensor(fd.mont_words([1])[0], device=value.device)[:, None]
+    return (value == one).all(dim=0).all(dim=0)
 
 
 def fold_final_exp_plain(f):
     res = tfexp.final_exponentiation_t(tfexp.fold_lanes(fd.words_to_bundle(f)))
     value = fd.bundle_to_words(res)
-    return value, is_one(value)
+    return value, is_one(value)[0]
 
 
 def fold_final_exp(f, require_kernel: bool = False):
@@ -45,3 +54,32 @@ def fold_final_exp(f, require_kernel: bool = False):
         f, B, scratch[0], scratch[1], value, verdict,
     )
     return value, verdict[0] == 1
+
+
+def _split(f):
+    B = f.shape[-1]
+    if B < 2 or B % 2:
+        raise ValueError(f"pair_final_exp: {B} Miller values, expected 2 S")
+    return B // 2
+
+
+def pair_final_exp_plain(f):
+    S = _split(f)
+    b = fd.words_to_bundle(f)
+    res = tfexp.final_exponentiation_t(tp.fp12_mul(b[..., :S], b[..., S:]))
+    value = fd.bundle_to_words(res)
+    return value, is_one(value)
+
+
+def pair_final_exp(f, require_kernel: bool = False):
+    """(values (12, 12, S), verdicts (S,) bool) of (f_i f_{S+i}) ^
+    (3 (p^12 - 1) / r) for the 2 S Miller values f. CUDA tensors launch
+    K3's per-set entry, CPU tensors run `pair_final_exp_plain`."""
+    if not cuda_build.use_kernel(f, require_kernel):
+        return pair_final_exp_plain(f)
+    S = _split(f)
+    cuda_build.check(f, "f", (12, fd.NW, 2 * S))
+    value = torch.empty((12, fd.NW, S), dtype=torch.int32, device=f.device)
+    verdicts = torch.empty((S,), dtype=torch.int32, device=f.device)
+    cuda_build.launch("final_exp", "lh_pair_final_exp", "pair_final_exp", f, S, value, verdicts)
+    return value, verdicts == 1

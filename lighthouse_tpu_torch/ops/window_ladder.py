@@ -1,11 +1,13 @@
-"""Signed-digit window ladder: scalar recoding and the plain ladder.
+"""Scalar ladders: digit recoding and the plain ladders of K1's three forms.
 
 The port of `lighthouse_tpu/ops/window_ladder.py`'s transposed plane: a
 scalar < 2^nbits becomes W signed base-2^c digits d_w in
 [-(2^(c-1) - 1), 2^(c-1)] (window-major magnitudes and sign flags), and the
 ladder runs, MSB first, c doublings and one complete addition of
 sign * table[|d|] per window. c = 4 throughout the verify path: a 64-bit
-RLC scalar has W = 17 windows.
+RLC scalar has W = 17 windows. The per-bit chain (`tcurve.mul_scalar_bits`)
+and the 2-bit unsigned window (`tcurve.mul_scalar_bits_w2`) are K1's other
+two forms.
 """
 
 import numpy as np
@@ -98,3 +100,33 @@ def mul_scalar_bits_windowed_t(group, pt, bits, c: int = WINDOW_BITS):
     (window_ladder.mul_scalar_bits_windowed_t)."""
     mags, negs = recode_bits(bits.movedim(0, -1), c)
     return mul_digits_windowed_t(group, pt, mags, negs, c)
+
+
+def digits_w2(bits):
+    """(n_bits, B) 0/1 LSB-first bits -> (ceil(n_bits / 2), B) int32 2-bit
+    digits, MSB first; an odd count gains a zero top bit
+    (tcurve.mul_scalar_bits_w2)."""
+    bits = bits.to(torch.int32)
+    if bits.shape[0] % 2:
+        bits = F.pad(bits, (0, 0, 0, 1))
+    return (bits[0::2] + 2 * bits[1::2]).flip(0).contiguous()
+
+
+def mul_scalar_bits_chain_t(group, pt, bits):
+    """The plain double-add chain from (nbits, B) LSB-first bits
+    (tcurve.mul_scalar_bits)."""
+    acc = group.identity(pt[0].shape[-1], pt[0].device)
+    addend = pt
+    for bit in bits:
+        acc, addend = group.ladder_step(acc, addend, bit)
+    return acc
+
+
+def mul_scalar_bits_w2_t(group, pt, bits):
+    """The plain 2-bit window ladder from (nbits, B) LSB-first bits
+    (tcurve.mul_scalar_bits_w2)."""
+    table = group.window2_table(pt)
+    acc = group.identity(pt[0].shape[-1], pt[0].device)
+    for digit in digits_w2(bits):
+        acc = group.window2_step(acc, table, digit)
+    return acc

@@ -13,7 +13,7 @@ from lighthouse_tpu.crypto import ref_fields as rf
 from lighthouse_tpu.crypto.constants import P
 from lighthouse_tpu.ops import fieldb as fb
 from lighthouse_tpu.ops import tfield as tf
-from lighthouse_tpu_torch.ops import field as fd
+from lighthouse_tpu_torch.ops import field as fd, programs
 
 torch.set_num_threads(1)
 
@@ -145,3 +145,21 @@ def test_from_jax_bundle_relaxed():
     shaped = fd.from_jax_bundle(jb.reshape(3, 4, fb.NB))
     assert shaped.shape == (3, 4, fd.NW)
     assert np.array_equal(shaped.reshape(-1, fd.NW), words)
+
+
+@pytest.mark.parametrize("prog", ["FP2_MUL", "FP6_MUL", "FP12_MUL", "FP12_SQR", "LINE_MUL"])
+def test_bilinear_matches_separate_recombinations(prog):
+    """`bilinear` runs A x and B y as one block-diagonal recombination; the
+    canonical product equals the one from two separate recombinations."""
+    pg = getattr(programs, prog)
+    rng = np.random.default_rng(len(prog))
+
+    def operand(slots):
+        vals = [int.from_bytes(rng.bytes(48), "little") % P for _ in range(slots * 2)]
+        return fd.words_to_bundle(torch.tensor(fd.mont_words(vals).reshape(slots, 2, fd.NW).transpose(0, 2, 1)))
+
+    x, y = operand(pg.A.shape[1]), operand(pg.B.shape[1])
+    if prog == "FP12_SQR":
+        y = x
+    want = fd.apply_combo(fd.mul_lazy(fd.apply_combo(x, pg.A), fd.apply_combo(y, pg.B)), pg.C)
+    assert torch.equal(fd.bundle_to_words(fd.bilinear(x, y, pg)), fd.bundle_to_words(want))

@@ -1,8 +1,9 @@
-"""The port's plain complete projective G1/G2 plane and window ladder
-(lighthouse_tpu_torch/ops/curve.py, window_ladder.py, ladder.py) against
-the JAX package: tcurve.TPG1/TPG2's add, double and window_step (canonical
-X:Y:Z, exactly), window_ladder's digit recoding, and crypto/ref_curve's
-scalar multiplication for the whole 64-bit ladder."""
+"""The port's plain complete projective G1/G2 plane and K1's three ladder
+forms (lighthouse_tpu_torch/ops/curve.py, window_ladder.py, ladder.py)
+against the JAX package: tcurve.TPG1/TPG2's add, double, window_step,
+mul_scalar_bits and mul_scalar_bits_w2 (canonical X:Y:Z, exactly),
+window_ladder's digit recoding, and crypto/ref_curve's scalar
+multiplication for the whole 64-bit ladder of every form."""
 
 import jax
 import jax.numpy as jnp
@@ -72,7 +73,9 @@ def _canon(bundles) -> np.ndarray:
 
 class _JaxGroup(tcurve.TProjective):
     """tcurve's TProjective with its add/double/neg compiled once, so its
-    own window_step runs as written without compiling the whole step."""
+    own window_step runs as written without compiling the whole step, and
+    its scans (mul_scalar_bits, mul_scalar_bits_w2) run step by step under
+    `jax.disable_jit()` on the same compiled add and double."""
 
     def __init__(self, base, sample):
         super().__init__(base.pg)
@@ -81,13 +84,16 @@ class _JaxGroup(tcurve.TProjective):
         self._neg = _jit(base.neg, sample)
 
     def add(self, p, q):
-        return self._add(p, q)
+        with jax.disable_jit(False):
+            return self._add(p, q)
 
     def double(self, pt):
-        return self._dbl(pt)
+        with jax.disable_jit(False):
+            return self._dbl(pt)
 
     def neg(self, pt):
-        return self._neg(pt)
+        with jax.disable_jit(False):
+            return self._neg(pt)
 
 
 _JAX: dict = {}
@@ -188,3 +194,74 @@ def test_recode_matches_jax_window_ladder(nbits):
     j_mags, j_negs = jwl.signed_digit_arrays(scalars, nbits=nbits)
     mags, negs = wl.recode_bits(torch.tensor(wl.scalars_to_bits(scalars, nbits)))
     assert np.array_equal(mags.numpy(), j_mags) and np.array_equal(negs.numpy(), j_negs)
+
+
+# ------------------------------------------- K1's chain and 2-bit window forms
+
+JAX_FORMS = {"chain": "mul_scalar_bits", "w2": "mul_scalar_bits_w2"}
+
+
+@pytest.mark.parametrize("form", ["chain", "w2"])
+@pytest.mark.parametrize("name", ["G1", "G2"])
+def test_form_matches_tcurve_8_bits(name, form):
+    """tcurve's own scan (digits, table and step order included) on the
+    compiled add/double shared with the tests above, 8 random bits a lane
+    (odd-length 7-bit prefix too for w2's padding), projective X:Y:Z."""
+    pt, _ = _points(name, 4, seed=7)
+    jg = _jax_group(name, pt)
+    bits = np.random.default_rng(8).integers(0, 2, (8, 4)).astype(np.int32)
+    words = tuple(fd.bundle_to_words(c) for c in _port(pt))
+    for n in (8, 7) if form == "w2" else (8,):
+        with jax.disable_jit():
+            want = getattr(jg, JAX_FORMS[form])(tuple(map(jnp.asarray, pt)), jnp.asarray(bits[:n]))
+        got = ladder.ladder(words, torch.as_tensor(bits[:n]), form=form)
+        assert (_canon([fd.words_to_bundle(c) for c in got]) == _canon(want)).all()
+
+
+@pytest.mark.parametrize("form", ["chain", "w2"])
+@pytest.mark.parametrize("name", ["G1", "G2"])
+def test_form_matches_ref_scalar_mul(name, form):
+    """The whole 64-bit plain ladder of each form (K1's CPU path), to
+    affine, against ref_curve, as for the window form above."""
+    w, G, _ = GROUPS[name]
+    pts, affs = _points(name, 4, seed=5)
+    scalars = [0, (1 << 64) - 1, 1, 0xDEADBEEFCAFE1234]
+    bits = torch.tensor(wl.scalars_to_bits(scalars, 64)).t().contiguous()
+    words = tuple(fd.bundle_to_words(c) for c in _port(pts))
+    x, y, inf = curve_kernels.to_affine(ladder.ladder(words, bits, form=form))
+    for lane, (aff, k) in enumerate(zip(affs, scalars)):
+        want = None if aff is None else G.to_affine(G.mul_scalar(G.from_affine(aff), k))
+        assert bool(inf[lane]) == (want is None)
+        if want is not None:
+            assert fd.words_from_mont(x[:, :, lane].numpy()) == _coords(want[0], w)
+            assert fd.words_from_mont(y[:, :, lane].numpy()) == _coords(want[1], w)
+
+
+@pytest.mark.parametrize("n_bits", [1, 2, 3, 7, 8, 63, 64, 255])
+def test_digits_w2_match_tcurve_rule(n_bits):
+    """MSB-first 2-bit digits, an odd count padded with a zero top bit, as
+    mul_scalar_bits_w2 builds them; the digits spell the scalar."""
+    bits = np.random.default_rng(n_bits).integers(0, 2, (n_bits, 3)).astype(np.int32)
+    padded = np.concatenate([bits, np.zeros((n_bits % 2, 3), np.int32)])
+    want = (padded[0::2] + 2 * padded[1::2])[::-1]
+    got = wl.digits_w2(torch.as_tensor(bits))
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    scalar = (bits.astype(object) * (1 << np.arange(n_bits, dtype=object))[:, None]).sum(0)
+    spelled = [sum(int(d) << (2 * i) for i, d in enumerate(got.numpy()[::-1, j])) for j in range(3)]
+    assert spelled == list(scalar)
+
+
+@pytest.mark.parametrize(
+    "form, n_operands, match",
+    [("w4", 1, "unknown form"), ("window", 1, "takes 2 digit operand"),
+     ("chain", 2, "takes 1 digit operand"), ("w2", 2, "takes 1 digit operand")],
+)
+def test_unknown_form_or_operands_raise(form, n_operands, match):
+    """Both the wrapper and the plain version refuse a form they do not
+    know and a digit operand count that does not fit the form."""
+    pts, _ = _points("G1", 2, seed=9, identity_lane=False)
+    words = tuple(fd.bundle_to_words(c) for c in _port(pts))
+    operands = [torch.zeros((8, 2), dtype=torch.int32)] * n_operands
+    for call in (ladder.ladder, ladder.ladder_plain):
+        with pytest.raises(ValueError, match=match):
+            call(words, *operands, form=form)

@@ -9,8 +9,10 @@
 """
 
 import ast
+import ctypes
 import importlib.util
 import os
+import re
 
 import numpy as np
 import pytest
@@ -20,7 +22,7 @@ from lighthouse_tpu_torch import testing as T
 from lighthouse_tpu_torch.bls import api
 from lighthouse_tpu_torch.bls.device_pubkey_table import DevicePubkeyTable
 from lighthouse_tpu_torch.ops import cuda_build, curve_kernels, field as fd
-from lighthouse_tpu_torch.ops import final_exp, ladder, miller
+from lighthouse_tpu_torch.ops import final_exp, ladder, miller, mma_probe
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "lighthouse_tpu_torch")
@@ -72,6 +74,8 @@ def test_every_kernel_has_a_source_and_a_counter():
     assert set(cuda_build.LAUNCHES) == {
         "ladder_g1", "ladder_g2", "miller", "fold_final_exp",
         "lane_sum_g1", "lane_sum_g2", "to_affine_g1", "to_affine_g2",
+        "ladder_g1_chain", "ladder_g2_chain", "ladder_g1_w2", "ladder_g2_w2",
+        "pair_final_exp", "mma_probe_i8", "mma_probe_bf16",
     }
 
 
@@ -81,6 +85,10 @@ def _point(w, B):
 
 def _digits(B):
     return torch.zeros((17, B), dtype=torch.int32), torch.zeros((17, B), dtype=torch.int32)
+
+
+def _bits(B):
+    return torch.zeros((64, B), dtype=torch.int32)
 
 
 WRAPPERS = {
@@ -96,7 +104,24 @@ WRAPPERS = {
     "lane_sum_g2": lambda: curve_kernels.lane_sum(_point(2, 4), 2, require_kernel=True),
     "to_affine_g1": lambda: curve_kernels.to_affine(_point(1, 4), require_kernel=True),
     "to_affine_g2": lambda: curve_kernels.to_affine(_point(2, 4), require_kernel=True),
+    "ladder_g1_chain": lambda: ladder.ladder(_point(1, 4), _bits(4), form="chain", require_kernel=True),
+    "ladder_g2_chain": lambda: ladder.ladder(_point(2, 4), _bits(4), form="chain", require_kernel=True),
+    "ladder_g1_w2": lambda: ladder.ladder(_point(1, 4), _bits(4), form="w2", require_kernel=True),
+    "ladder_g2_w2": lambda: ladder.ladder(_point(2, 4), _bits(4), form="w2", require_kernel=True),
+    "pair_final_exp": lambda: final_exp.pair_final_exp(
+        torch.zeros((12, fd.NW, 4), dtype=torch.int32), require_kernel=True
+    ),
+    "mma_probe_i8": lambda: mma_probe.contract(
+        *mma_probe.operands(*mma_probe.probe_inputs(), "i8", "cpu"), "i8", require_kernel=True
+    ),
+    "mma_probe_bf16": lambda: mma_probe.contract(
+        *mma_probe.operands(*mma_probe.probe_inputs(), "bf16", "cpu"), "bf16", require_kernel=True
+    ),
 }
+
+
+def test_every_counter_has_a_wrapper_check():
+    assert set(WRAPPERS) == set(cuda_build.LAUNCHES)
 
 
 @pytest.mark.parametrize("kernel", sorted(WRAPPERS))
@@ -154,3 +179,37 @@ def test_chip_smoke_exits_nonzero_without_gpu(capsys):
     spec.loader.exec_module(smoke)
     assert smoke.main() != 0
     assert '"ok"' not in capsys.readouterr().out
+
+
+ENTRIES = [(src, fn) for src, fns in sorted(cuda_build.SOURCES.items()) for fn in sorted(fns)]
+
+
+@pytest.mark.parametrize("source, entry", ENTRIES, ids=[e for _, e in ENTRIES])
+def test_c_entry_matches_its_ctypes_signature(source, entry):
+    """Every entry `cuda_build` binds is exported from its source with a
+    plain C interface and as many parameters as its argtypes: pointers
+    (void*) and ints, the stream last."""
+    with open(os.path.join(cuda_build.CSRC, f"{source}.cu")) as f:
+        text = f.read()
+    m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", text)
+    assert m, f"{entry} is not exported from {source}.cu"
+    params = [p.strip() for p in m.group(1).split(",")]
+    argtypes = cuda_build.SOURCES[source][entry]
+    assert len(params) == len(argtypes)
+    for param, t in zip(params, argtypes):
+        assert param.startswith("int ") if t is ctypes.c_int else "void*" in param, (param, t)
+    assert params[-1] == "void* stream"
+
+
+@pytest.mark.parametrize("stack", [True, False], ids=["stack_frame", "no_stack_frame"])
+def test_ptxas_summary_reads_every_entry(stack):
+    used = "Used 94 registers, used 0 barriers" + (", 2352 bytes cumulative stack size" if stack else "")
+    text = (
+        "ptxas info    : Compiling entry function '_Zk' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Zk\n"
+        "    2352 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+        f"ptxas info    : {used}, 400 bytes cmem[0]\n"
+    )
+    out = cuda_build.ptxas_summary(text)
+    assert out["kernels"] == {"_Zk": {"registers": 94, "stack_bytes": 2352 if stack else 0}}
+    assert (out["spill_store_bytes"], out["spill_load_bytes"]) == (8, 4)

@@ -4,7 +4,8 @@ the K2 and K3 wrappers) against the JAX package: tpairing's fused
 double/add steps (exact point and line), and crypto/ref_pairing's pairing
 values after the final exponentiation -- the same exponent 3 (p^12 - 1) / r,
 so the values agree exactly although ref_pairing's affine Miller loop
-scales its lines differently."""
+scales its lines differently. K3's per-set entry (`pair_final_exp`) is held
+to ref_pairing the same way."""
 
 import jax
 import jax.numpy as jnp
@@ -124,6 +125,38 @@ def test_final_exponentiation_of_random_fp12_matches_ref():
     value, ok = final_exp.fold_final_exp(_mont_words([vals]))
     assert _fp12_ints(value) == rp.final_exponentiation(f)
     assert not bool(ok)
+
+
+def test_pair_final_exp_matches_ref():
+    """K3's per-set entry on 2 sets (4 Miller values): set i's value is
+    final_exponentiation(f_i * f_{2+i}); set 1's two values are inverses,
+    so its value is 1 and it alone passes."""
+    rng = np.random.default_rng(4)
+
+    def rand_fp12():
+        v = [int.from_bytes(rng.bytes(48), "little") % P for _ in range(12)]
+        return tuple(tuple((v[6 * i + 2 * j], v[6 * i + 2 * j + 1]) for j in range(3)) for i in range(2))
+
+    a0, a1, b0 = rand_fp12(), rand_fp12(), rand_fp12()
+    lanes = [a0, a1, b0, rf.fp12_inv(a1)]
+    flat = [[c for half in f for pair in half for c in pair] for f in lanes]
+    values, ok = final_exp.pair_final_exp(_mont_words(flat))
+    assert values.shape == (12, 12, 2) and ok.tolist() == [False, True]
+    assert _fp12_ints(values, 0) == rp.final_exponentiation(rf.fp12_mul(a0, b0))
+    assert _fp12_ints(values, 1) == rf.fp12_mul(a1, rf.fp12_inv(a1))
+
+
+def test_is_one_per_lane_and_pair_count():
+    """`is_one` reads each lane of a (12, 12, B) value; the per-set entry
+    takes an even number of Miller values (two per set)."""
+    one = torch.tensor(fd.mont_words([1])[0])
+    v = torch.zeros((12, fd.NW, 3), dtype=torch.int32)
+    v[0, :, 0] = one
+    v[0, :, 2] = one
+    v[5, 0, 2] = 1
+    assert final_exp.is_one(v).tolist() == [True, False, False]
+    with pytest.raises(ValueError, match="expected 2 S"):
+        final_exp.pair_final_exp(torch.zeros((12, fd.NW, 3), dtype=torch.int32))
 
 
 def test_bilinearity_on_port():

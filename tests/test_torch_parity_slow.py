@@ -1,7 +1,9 @@
 """Whole-graph parity of the port's plain versions with the JAX package,
 exactly (canonical words): the transposed Miller loop before the final
 exponentiation, the lane fold plus final exponentiation, the windowed RLC
-ladder, and the Pallas batch verify in interpret mode.
+ladder, the Pallas batch verify in interpret mode, the Pallas chain and
+2-bit ladder kernels in interpret mode, and the per-set verification graph
+(values after the final exponentiation, and verdicts).
 
 Marked slow: each JAX reference is a whole jitted graph whose cold compile
 takes minutes on a CPU (the Miller loop alone about a minute, the final
@@ -20,11 +22,14 @@ from lighthouse_tpu import testing as td
 from lighthouse_tpu.crypto import ref_curve as rc
 from lighthouse_tpu.crypto.constants import P
 from lighthouse_tpu.ops import batch_verify as jbv
+from lighthouse_tpu.ops import curve as jcurve
 from lighthouse_tpu.ops import fieldb as fb
-from lighthouse_tpu.ops import tcurve, tfexp as jfe, tpairing as jtp
+from lighthouse_tpu.ops import pairing as jpairing
+from lighthouse_tpu.ops import tcurve, tfexp as jfe, tower as jtower, tpairing as jtp
 from lighthouse_tpu.ops import window_ladder as jwl
+from lighthouse_tpu.ops.pallas_ladder import ladder_pallas
 from lighthouse_tpu_torch.ops import batch_verify, curve, field as fd
-from lighthouse_tpu_torch.ops import tfexp, tpairing
+from lighthouse_tpu_torch.ops import final_exp, ladder, miller, tfexp, tpairing
 from lighthouse_tpu_torch.ops import window_ladder as wl
 
 pytestmark = pytest.mark.slow
@@ -80,11 +85,10 @@ def test_fold_and_final_exponentiation_match():
     assert np.array_equal(_canon(got), _canon(want))
 
 
-@pytest.mark.parametrize("name", ["G1", "G2"])
-def test_windowed_ladder_matches(name):
-    """64-bit scalars (zero, one, all ones, random) with an identity lane,
-    projective X:Y:Z compared exactly."""
-    w, G, tg = {"G1": (1, rc.G1, tcurve.TPG1), "G2": (2, rc.G2, tcurve.TPG2)}[name]
+def _ladder_inputs(name):
+    """4 lanes (3, 5, 9, 17 times the generator, lane 1 the identity) and
+    64-bit scalars (zero, one, all ones, random) as (64, 4) LSB-first bits."""
+    w, G = {"G1": (1, rc.G1), "G2": (2, rc.G2)}[name]
     affs = [G.to_affine(G.mul_scalar(G.generator, k)) for k in (3, 5, 9, 17)]
     lanes_x = [_coords(a[0], w) for a in affs]
     lanes_y = [_coords(a[1], w) for a in affs]
@@ -92,7 +96,15 @@ def test_windowed_ladder_matches(name):
     lanes_x[1], lanes_y[1], lanes_z[1] = [0] * w, [1] + [0] * (w - 1), [0] * w  # identity
     pt = tuple(_bundle(c) for c in (lanes_x, lanes_y, lanes_z))
     scalars = [0, 1, (1 << 64) - 1, 0x9E3779B97F4A7C15]
-    bits = np.ascontiguousarray(wl.scalars_to_bits(scalars, 64).T)  # (64, B)
+    return pt, np.ascontiguousarray(wl.scalars_to_bits(scalars, 64).T)
+
+
+@pytest.mark.parametrize("name", ["G1", "G2"])
+def test_windowed_ladder_matches(name):
+    """64-bit scalars (zero, one, all ones, random) with an identity lane,
+    projective X:Y:Z compared exactly."""
+    w, tg = {"G1": (1, tcurve.TPG1), "G2": (2, tcurve.TPG2)}[name]
+    pt, bits = _ladder_inputs(name)
 
     def jax_ladder(X, Y, Z, b):
         return jwl.mul_scalar_bits_windowed_t(tg, (X, Y, Z), b)
@@ -125,3 +137,56 @@ def test_batch_verify_matches_pallas_interpret(corrupt):
     )
     got = bool(batch_verify.verify_signature_sets(*port_args, device="cpu"))
     assert got == want == (not corrupt)
+
+
+@pytest.mark.parametrize("kind", ["chain", "w2"])
+@pytest.mark.parametrize("name", ["G1", "G2"])
+def test_pallas_chain_and_w2_kernels_match(name, kind):
+    """The JAX package's Pallas ladder kernels `_ladder_kernel` ("chain")
+    and `_ladder_kernel_w2` ("w2") in interpret mode against K1's plain
+    forms, projective X:Y:Z exactly, at 64 bits."""
+    pt, bits = _ladder_inputs(name)
+    want = ladder_pallas(
+        tuple(map(jnp.asarray, pt)), jnp.asarray(bits), group_name=name, block_b=4,
+        interpret=True, kind=kind,
+    )
+    words = tuple(fd.bundle_to_words(torch.as_tensor(c)) for c in pt)
+    got = ladder.ladder_plain(words, torch.as_tensor(bits), form=kind)
+    for a, b in zip(got, want):
+        assert np.array_equal(a.numpy(), _canon(b))
+
+
+def test_individual_graph_matches():
+    """The JAX package's per-set graph, batch_verify.
+    verify_signature_sets_individual (verdicts), and the per-set values of
+    its own stages (aggregate_pubkeys, to_affine, miller_loop over the 2 S
+    pairs, tower.fp12_mul of f[:S] and f[S:], final_exponentiation) against
+    the port's per-set path on a 2-set batch whose second set is corrupt."""
+    msgs, sigs, pks, km, _, sm = td.make_signature_set_batch(
+        2, max_keys=2, seed=2, corrupt_indices=(1,)
+    )
+    want_ok = np.asarray(jax.jit(jbv.verify_signature_sets_individual)(msgs, sigs, pks, km, sm))
+
+    def jax_values(msgs, sigs, pks, km, sm):
+        S = sm.shape[0]
+        pk_x, pk_y, pk_inf = jcurve.PG1.to_affine(jbv.aggregate_pubkeys(pks, km))
+        neg = [jnp.broadcast_to(jnp.asarray(c), pk_x.shape) for c in jbv.NEG_G1_AFFINE]
+        g1 = (jnp.concatenate([pk_x, neg[0]]), jnp.concatenate([pk_y, neg[1]]))
+        g2 = (jnp.concatenate([msgs[0], sigs[0]]), jnp.concatenate([msgs[1], sigs[1]]))
+        mask = jnp.concatenate([sm & ~pk_inf, sm])
+        f = jpairing.miller_loop(g1, g2, valid_mask=mask)
+        return jpairing.final_exponentiation(jtower.fp12_mul(f[:S], f[S:]))
+
+    want = fd.from_jax_bundle(np.asarray(jax.jit(jax_values)(msgs, sigs, pks, km, sm)))
+    port = (
+        tuple(fd.from_jax_bundle(c) for c in msgs),
+        tuple(fd.from_jax_bundle(c) for c in sigs),
+        tuple(fd.from_jax_bundle(c) for c in pks),
+        np.asarray(km),
+        np.asarray(sm),
+    )
+    g1, g2, mask, _ = batch_verify._individual_pairs(*port, device="cpu")
+    values, _ = final_exp.pair_final_exp(miller.miller_loop(g1, g2, mask))
+    assert np.array_equal(values.permute(2, 0, 1).numpy(), want)
+    got_ok = batch_verify.verify_signature_sets_individual(*port, device="cpu")
+    assert got_ok.tolist() == want_ok.tolist() == [True, False]

@@ -75,6 +75,15 @@ def test_flat_layout(probe):
     assert stats["grouped"] is False and stats["indexed_path"] is False
 
 
+def test_ladder_form_keeps_the_verdict():
+    """K1's per-bit chain body (`ladder="chain"`) verifies the valid flat
+    batch of test_flat_layout, as the window body does; the 2-bit body
+    fails the forged flat batch of test_torch_individual.py. chip_smoke.py
+    holds both bodies on a valid and a forged 1,024-set batch on the card;
+    here each plain end-to-end run costs ~3 s of CPU."""
+    assert api.verify_signature_sets(_flat(), seed=1, device="cpu", ladder="chain") is True
+
+
 @pytest.mark.parametrize("probe", ["valid", "forged", "wrong_key"])
 def test_grouped_layout(probe):
     """Two committees of two sets. Valid and forged batches go through the

@@ -8,7 +8,13 @@ non-zero without its result line:
 
  1. the card's name and power limit (nvidia-smi, printed as is);
  2. build every CUDA kernel from lighthouse_tpu_torch/csrc (one nvcc per
-    source, in parallel), with what ptxas reports per kernel;
+    source, in parallel), with what ptxas reports per kernel and the
+    dynamic shared memory of the lane-group kernels K2 and K3;
+ 2b. the register-resident Fp product of K2 and K3 alone
+    (ops/fp_product.py): one thread's dependent chain (latency) and every
+    SM full of chains (product rate), both exact against Python integers;
+    with K3's fold chain profile, its floor = dependent product steps x
+    that latency;
  3. one mainnet slot of attestations -- 64 committees x 480 single-key
     sets, every key in an on-card table of 32,768 validators -- and a flat
     batch of 1,024 sets with distinct messages and 1-4 untagged keys;
@@ -27,9 +33,10 @@ non-zero without its result line:
     signatures (committees 0, 31, 63) fails as a batch, then
     verify_signature_sets_individually flags exactly those 3 -- two device
     calls in all; K3's per-set entry against its plain version on a
-    1,024-set slice; K2 and K3 timed at the per-set shapes; the flat batch's
-    per-set check (a forged set, an infinity signature, 4 sets against the
-    ref backend);
+    1,024-set slice; K2 and K3 timed at the per-set shapes; K2's 61,440-pair
+    output held on a 2,048-pair slice against K2 run on the slice alone and
+    against its plain version; the flat batch's per-set check (a forged
+    set, an infinity signature, 4 sets against the ref backend);
  8. the tensor-core probe (lighthouse_tpu_torch.ops.mma_probe), int8 and
     bf16, exact against the probe's numpy check and the plain version;
  9. the kernels line, then {"ok": true, "device": {...}} as the last line.
@@ -80,7 +87,7 @@ def main() -> int:
     from lighthouse_tpu_torch.bls.device_pubkey_table import DevicePubkeyTable
     from lighthouse_tpu_torch.ops import batch_verify as bv
     from lighthouse_tpu_torch.ops import cuda_build, curve, curve_kernels, field as fd
-    from lighthouse_tpu_torch.ops import final_exp, ladder, miller, mma_probe
+    from lighthouse_tpu_torch.ops import final_exp, fp_product, lanes, ladder, miller, mma_probe
     from lighthouse_tpu_torch.crypto.ref_curve import G2 as RG2
 
     os.makedirs(OUT, exist_ok=True)
@@ -103,7 +110,24 @@ def main() -> int:
         with open(os.path.join(OUT, f"ptxas_{src}.txt"), "w") as f:
             f.write(rec["ptxas"])
         ptxas[src] = cuda_build.ptxas_summary(rec["ptxas"])
-    emit("build", seconds=time.perf_counter() - t0, nvcc=cuda_build.nvcc_version(), ptxas=ptxas)
+    k2, k3 = lanes.k2_tables(), lanes.k3_tables()
+    lane_smem = {"miller": lanes.shared_bytes(k2, lanes.K2_THREADS),
+                 "fold_final_exp": lanes.shared_bytes(k3, lanes.K3_FOLD_THREADS),
+                 "pair_final_exp": lanes.shared_bytes(k3, lanes.K3_SET_THREADS,
+                                                      lanes.K3_SET_LANES)}
+    emit("build", seconds=time.perf_counter() - t0, nvcc=cuda_build.nvcc_version(), ptxas=ptxas,
+         lane_shared_bytes=lane_smem)
+
+    # ---------------------------------------- 2b. the Fp product alone
+    prod = fp_product.measure(dev)
+    fold_chain = lanes.chain_profile(k3, ["FEXP_A", "inv", "FEXP_B"])
+    miller_chain = lanes.chain_profile(k2, ["LOOP"])
+    dependent = fold_chain["product_steps"] + fold_chain["inv_products"]
+    floor_ms = dependent * prod["latency_ns_per_product"] / 1e6
+    emit("fp_product", **prod, imad_per_s=prod["products_per_s"] * IMAD_PER_FP_PRODUCT,
+         derived_imad_per_s=INT_OPS_PER_S, fold_chain=fold_chain, miller_chain=miller_chain,
+         fold_chain_dependent_products=dependent, fold_chain_floor_ms=floor_ms)
+    assert prod["latency_exact"] and prod["rate_exact"], "fp_product: chain not exact"
 
     # ---------------------------------------------------------- 3. data
     t0 = time.perf_counter()
@@ -346,6 +370,17 @@ def main() -> int:
     pair_ms = cuda_build.time_ms(lambda: final_exp.pair_final_exp(f))
     _, ok_all = final_exp.pair_final_exp(f)
     assert (~ok_all).nonzero().flatten().tolist() == forged_at
+    # K2's multi-wave launch held exactly: a 2,048-pair slice across both
+    # halves of the 2 S pairs, from the full run, alone, and plain
+    cols = slice(S - 1_024, S + 1_024)
+    g1_s = tuple(t[..., cols].contiguous() for t in g1)
+    g2_s = tuple(t[..., cols].contiguous() for t in g2)
+    pmask_s = pmask[cols].contiguous()
+    f_alone = miller.miller_loop(g1_s, g2_s, pmask_s)
+    assert torch.equal(f[..., cols], f_alone), "K2 at 61,440 pairs differs from the slice alone"
+    miller_slice = hold("miller", lambda: miller.miller_loop(g1_s, g2_s, pmask_s),
+                        lambda: miller.miller_loop_plain(g1_s, g2_s, pmask_s),
+                        nb(g1_s, g2_s, pmask_s))
     SLICE = 1_024
     f_slice = torch.cat([f[..., :SLICE], f[..., S:S + SLICE]], dim=-1).contiguous()
     rec = hold("pair_final_exp", lambda: final_exp.pair_final_exp(f_slice),
@@ -356,7 +391,8 @@ def main() -> int:
         "pair_final_exp": dict(rec, ms=pair_ms, sets=S, bound_ms=rec["bound_ms"] * scale,
                                fp_products=rec["fp_products"] * scale, bytes=rec["bytes"] * scale,
                                plain_ms_at_sets=SLICE),
-        "miller": {"ms": miller_ms, "pairs": 2 * S},
+        "miller": {"ms": miller_ms, "pairs": 2 * S, "slice_pairs": 2_048,
+                   "slice_same_as_full_run": True, "slice": miller_slice},
     }
     emit("per_set", sets=S, forged_at=forged_at, batch_verdict=batch_ok, batch_s=batch_s,
          flagged=flagged, device_calls=calls, first_call_s=first_s, walls_s=walls,

@@ -1,4 +1,4 @@
-// K2 -- the batched optimal-ate Miller loop, one pair per thread.
+// K2 -- the batched optimal-ate Miller loop, one lane group per pair.
 //
 // Replaces the TPU kernel lighthouse_tpu/ops/pallas_miller.py `_kernel`
 // (reached through `miller_loop_pallas`): 63 iterations over the bits of
@@ -6,179 +6,72 @@
 // bit f <- f * l_{T,Q}(P), T <- T + Q; then the conjugate because x < 0.
 // Masked pairs write f = 1, as the JAX wrapper's select does.
 //
-// What bounds it on the H100: integer multiply-adds in one thread's
-// dependent chain. A pair costs ~10k Fp products (Fp12 squaring, the line
-// product and the twist steps), and at the main path's 65 pairs the launch
-// is under one SM, so latency -- not the card's multiply rate -- sets the
-// time; f (144 words) plus T and the step temporaries exceed the 255
-// registers a thread may hold, so they spill to local memory.
+// What bounds it on the H100: the dependent chain of one pair. An
+// iteration's products are independent in wide rounds -- f^2 (FP12_SQR, 36
+// Fp products) beside the doubling step's first Fp2 products, the line
+// product (LINE_MUL, 39) -- but the 63 iterations follow one another, so at
+// the main path's 65 or 1,025 pairs the time is the chain's latency; at the
+// per-set path's 61,440 pairs the card's integer multiply rate.
 //
-// Design: the exact step formulas and line layout of ops/tpairing.py
-// (`_dbl_step`, `_add_step`, `_mul_by_line`), because a different line
-// scaling changes f while keeping the pairing. The line (l0, l2, l3) is
-// multiplied as the full Fp12 (l0 + l2 v) + (l3 v) w. One thread per pair
-// is the simple first design; spreading a pair over a warp is later work.
+// Design: a group of G lanes (lanes.cuh, one warp) per pair runs the
+// generated lane programs `dbl` and `dbl_add` of lane_programs.cuh, one
+// call a bit of |x|, and `conj` at the end. They are the exact step
+// formulas and line layout of ops/tpairing.py (`dbl_step`, `add_step`,
+// `mul_by_line`, with f^2 by FP12_SQR), because a different line scaling
+// changes f while keeping the pairing; ops/lanes.py schedules their
+// products into steps: 5 steps an iteration, 7 with the addition
+// (tests/test_torch_lane_programs.py emulates them against tpairing on the
+// CPU). f, T, P and Q stay in the group's slot file in shared memory for
+// the whole loop; each product is one lane's registers. Blocks hold GROUPS
+// groups, so 61,440 pairs run as 7,680 blocks over the card's SMs.
 //
-// ptxas -v (nvcc 12.9, sm_90a): 254 registers, 0 bytes of register spills;
-// f, T and the step temporaries live in a 3,984-byte per-thread stack
-// frame in local memory (the structs the __noinline__ tower functions take
-// by reference), which is where the expected spill went.
+// ptxas -v (nvcc 12.9, sm_90a): PERF.md lists registers and shared memory;
+// no stack frame, no spills.
 
 #include <cuda_runtime.h>
 
-#include "bls12_381.cuh"
+#include "lanes.cuh"
 
-using namespace bls;
+using namespace lanes;
 
-struct G2Proj {
-  Fp2 X, Y, Z;
-};
+constexpr int THREADS = K2::THREADS;
+constexpr int GROUPS = THREADS / G;
+constexpr int SMEM_BYTES = (K2::WORDS + GROUPS * NW * K2::NS) * 4;
 
-// tangent line at T evaluated at P, and T <- 2T (tpairing._dbl_step)
-__device__ __noinline__ void dbl_step(G2Proj& t, Fp12& line, const Fp& px,
-                                      const Fp& py) {
-  Fp2 a, b, z2, yz, xb, e, c, xb2, f, x3c, x2z2, yz3, s, u;
-  fp2_sqr(a, t.X);
-  fp2_sqr(b, t.Y);
-  fp2_sqr(z2, t.Z);
-  fp2_mul(yz, t.Y, t.Z);
-  fp2_add(xb, t.X, b);
-  fp2_add(e, a, a);
-  fp2_add(e, e, a);  // e = 3a
-  fp2_sqr(c, b);
-  fp2_sqr(xb2, xb);
-  fp2_sqr(f, e);
-  fp2_mul(x3c, t.X, a);
-  fp2_mul(x2z2, a, z2);
-  fp2_mul(yz3, yz, z2);
-  // d = xb2 - a - c (half of 2((X + b)^2 - a - c))
-  Fp2 d, x3, dmx;
-  fp2_sub(d, xb2, a);
-  fp2_sub(d, d, c);
-  // x3 = f - 4 d
-  fp2_dbl(s, d);
-  fp2_dbl(s, s);
-  fp2_sub(x3, f, s);
-  // dmx = 2 d - x3 = 6 d - f
-  fp2_dbl(s, d);
-  fp2_sub(dmx, s, x3);
-  // c0 = 3 x3c - 2 b
-  Fp2 c0, m3xz, c3p, z3;
-  fp2_add(s, x3c, x3c);
-  fp2_add(s, s, x3c);
-  fp2_dbl(u, b);
-  fp2_sub(c0, s, u);
-  // m3xz = -3 x2z2
-  fp2_add(s, x2z2, x2z2);
-  fp2_add(s, s, x2z2);
-  fp2_neg(m3xz, s);
-  fp2_dbl(c3p, yz3);
-  fp2_dbl(z3, yz);
-  // y3 = e dmx - 8 c
-  Fp2 y3;
-  fp2_mul(s, e, dmx);
-  fp2_dbl(u, c);
-  fp2_dbl(u, u);
-  fp2_dbl(u, u);
-  fp2_sub(y3, s, u);
-  // line = (c0, m3xz * px, c3p * py) at slots (w^0 v^0, w^0 v^1, w^1 v^1)
-  fp12_one(line);
-  line.c0.c0 = c0;
-  fp2_mul_fp(line.c0.c1, m3xz, px);
-  fp2_zero(line.c0.c2);
-  fp2_zero(line.c1.c0);
-  fp2_mul_fp(line.c1.c1, c3p, py);
-  fp2_zero(line.c1.c2);
-  t.X = x3;
-  t.Y = y3;
-  t.Z = z3;
-}
-
-// chord line through T and Q evaluated at P, and T <- T + Q
-// (tpairing._add_step, mixed addition with affine Q)
-__device__ __noinline__ void add_step(G2Proj& t, Fp12& line, const Fp2& qx,
-                                      const Fp2& qy, const Fp& px,
-                                      const Fp& py) {
-  Fp2 z1s, u2, z1c, gamma, qyz, hh, z1gam, theta, tt, hhh, v, tqx, qyz3, s;
-  fp2_sqr(z1s, t.Z);
-  fp2_mul(u2, qx, z1s);
-  fp2_mul(z1c, z1s, t.Z);
-  fp2_sub(gamma, u2, t.X);
-  fp2_mul(qyz, qy, z1c);
-  fp2_sqr(hh, gamma);
-  fp2_mul(z1gam, t.Z, gamma);
-  fp2_sub(theta, qyz, t.Y);
-  fp2_sqr(tt, theta);
-  fp2_mul(hhh, gamma, hh);
-  fp2_mul(v, t.X, hh);
-  fp2_mul(tqx, theta, qx);
-  fp2_mul(qyz3, qy, z1gam);
-  // x3 = tt - hhh - 2 v ; vmx = v - x3
-  Fp2 x3, vmx, c0, mtheta, y3, a, b;
-  fp2_sub(x3, tt, hhh);
-  fp2_dbl(s, v);
-  fp2_sub(x3, x3, s);
-  fp2_sub(vmx, v, x3);
-  fp2_sub(c0, tqx, qyz3);
-  fp2_neg(mtheta, theta);
-  // y3 = theta vmx - Y1 hhh
-  fp2_mul(a, theta, vmx);
-  fp2_mul(b, t.Y, hhh);
-  fp2_sub(y3, a, b);
-  fp12_one(line);
-  line.c0.c0 = c0;
-  fp2_mul_fp(line.c0.c1, mtheta, px);
-  fp2_zero(line.c0.c2);
-  fp2_zero(line.c1.c0);
-  fp2_mul_fp(line.c1.c1, z1gam, py);
-  fp2_zero(line.c1.c2);
-  t.X = x3;
-  t.Y = y3;
-  t.Z = z1gam;
-}
-
-__global__ void miller_kernel(const int32_t* __restrict__ px_w,
-                              const int32_t* __restrict__ py_w,
-                              const int32_t* __restrict__ qx_w,
-                              const int32_t* __restrict__ qy_w,
-                              const int32_t* __restrict__ mask, int B,
-                              int32_t* f_out) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  Fp12 f;
-  fp12_one(f);
-  if (mask[lane]) {
-    Fp px, py;
-    Fp2 qx, qy;
-    fp_load(px, px_w, lane, B);
-    fp_load(py, py_w, lane, B);
-    fp2_load(qx, qx_w, lane, B);
-    fp2_load(qy, qy_w, lane, B);
-    G2Proj t;
-    t.X = qx;
-    t.Y = qy;
-    fp2_one(t.Z);
-    Fp12 line;
-    for (int i = 62; i >= 0; i--) {
-      fp12_sqr(f, f);
-      dbl_step(t, line, px, py);
-      fp12_mul(f, f, line);
-      if ((X_ABS >> i) & 1ull) {
-        add_step(t, line, qx, qy, px, py);
-        fp12_mul(f, f, line);
-      }
-    }
-    fp12_conj(f, f);  // x < 0
+__global__ void __launch_bounds__(THREADS)
+    miller_kernel(const int32_t* __restrict__ px, const int32_t* __restrict__ py,
+                  const int32_t* __restrict__ qx, const int32_t* __restrict__ qy,
+                  const int32_t* __restrict__ mask, int B, int32_t* f_out) {
+  extern __shared__ __align__(16) u32 smem[];
+  copy_table<K2>(smem, K2_TABLE);
+  const int group = threadIdx.x / G, lane = threadIdx.x % G;
+  const int pair = blockIdx.x * GROUPS + group;
+  if (pair >= B) return;  // the whole group
+  u32* file = smem + K2::WORDS + group * NW * K2::NS;
+  if (!mask[pair]) {
+    set_one(file, K2::F, 12, lane);
+  } else {
+    load_value(file, K2::PX, 1, px, pair, B, lane);
+    load_value(file, K2::PY, 1, py, pair, B, lane);
+    load_value(file, K2::QX, 2, qx, pair, B, lane);
+    load_value(file, K2::QY, 2, qy, pair, B, lane);
+    load_value(file, K2::TX, 2, qx, pair, B, lane);
+    load_value(file, K2::TY, 2, qy, pair, B, lane);
+    set_one(file, K2::TZ, 2, lane);
+    set_one(file, K2::F, 12, lane);
+    group_sync();
+    run_calls<K2>(smem, K2::CALLS_LOOP, K2::CALLS_LOOP_END, file, lane);
   }
-  fp12_store(f_out, lane, B, f);
+  group_sync();
+  store_value(f_out, pair, B, file, K2::F, 12, lane);
 }
 
 extern "C" int lh_miller(const void* px, const void* py, const void* qx,
                          const void* qy, const void* mask, int B, void* f_out,
                          void* stream) {
-  const int threads = 64;
-  const int blocks = (B + threads - 1) / threads;
-  miller_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  cudaFuncSetAttribute(miller_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  const int blocks = (B + GROUPS - 1) / GROUPS;
+  miller_kernel<<<blocks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       (const int32_t*)px, (const int32_t*)py, (const int32_t*)qx,
       (const int32_t*)qy, (const int32_t*)mask, B, (int32_t*)f_out);
   return (int)cudaGetLastError();

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc and call them through ctypes.
 
-Each source under `lighthouse_tpu_torch/csrc/` (one per kernel family; all
-but the tensor-core probe include `bls12_381.cuh`) compiles at first use into its own shared
-library with a plain C interface under `lighthouse_tpu_torch/build/`:
+Each source under `lighthouse_tpu_torch/csrc/` (one per kernel family; K1
+and the helpers include `bls12_381.cuh`, K2, K3 and the product probe
+`lanes.cuh`) compiles at first use into its own shared library with a plain
+C interface under `lighthouse_tpu_torch/build/`:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o build/lib<name>.so csrc/<name>.cu
@@ -18,6 +19,7 @@ never falls back to anything.
 """
 
 import ctypes
+import glob
 import os
 import re
 import shutil
@@ -51,6 +53,7 @@ SOURCES = {
         "lh_fold_final_exp": [_P, _I, _P, _P, _P, _P, _P],
         "lh_pair_final_exp": [_P, _I, _P, _P, _P],
     },
+    "fp_product": {"lh_fp_chain": [_P, _P, _I, _I, _P, _P]},
     "curve_helpers": {
         "lh_lane_sum_level_g1": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
         "lh_lane_sum_level_g2": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
@@ -120,7 +123,7 @@ def _stale(source: str) -> bool:
     if not os.path.exists(so):
         return True
     built = os.path.getmtime(so)
-    deps = (os.path.join(CSRC, f"{source}.cu"), os.path.join(CSRC, HEADER))
+    deps = [os.path.join(CSRC, f"{source}.cu")] + glob.glob(os.path.join(CSRC, "*.cuh"))
     return any(os.path.getmtime(d) > built for d in deps)
 
 
@@ -246,9 +249,9 @@ def use_kernel(t, require_kernel: bool) -> bool:
     return False
 
 
-def launch(source: str, fn: str, kernel: str, *args) -> None:
+def call(source: str, fn: str, *args) -> None:
     """Call C entry `fn` of `source` (tensors become device pointers, the
-    current stream is appended) and count one launch of `kernel`."""
+    current stream is appended); raise unless it returns 0."""
     lib = library(source)
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
@@ -256,6 +259,11 @@ def launch(source: str, fn: str, kernel: str, *args) -> None:
         rc = getattr(lib, fn)(*cargs, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: CUDA launch failed with error {rc}")
+
+
+def launch(source: str, fn: str, kernel: str, *args) -> None:
+    """`call`, and count one launch of `kernel`."""
+    call(source, fn, *args)
     LAUNCHES[kernel] += 1
 
 

@@ -213,3 +213,19 @@ def test_ptxas_summary_reads_every_entry(stack):
     out = cuda_build.ptxas_summary(text)
     assert out["kernels"] == {"_Zk": {"registers": 94, "stack_bytes": 2352 if stack else 0}}
     assert (out["spill_store_bytes"], out["spill_load_bytes"]) == (8, 4)
+
+
+def test_every_header_makes_its_sources_stale(monkeypatch, tmp_path):
+    monkeypatch.setattr(cuda_build, "BUILD", str(tmp_path))
+    so = cuda_build.lib_path("miller")
+    open(so, "w").close()
+    newest = max(os.path.getmtime(os.path.join(cuda_build.CSRC, f))
+                 for f in os.listdir(cuda_build.CSRC))
+    os.utime(so, (newest + 10, newest + 10))
+    assert not cuda_build._stale("miller")
+    os.utime(so, (newest - 10, newest - 10))
+    assert cuda_build._stale("miller")
+    header = os.path.join(cuda_build.CSRC, "lanes.cuh")
+    os.utime(so, (os.path.getmtime(header) - 1,) * 2)
+    assert cuda_build._stale("miller")
+

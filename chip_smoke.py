@@ -8,9 +8,10 @@ non-zero without its result line:
 
  1. the card's name and power limit (nvidia-smi, printed as is);
  2. build every CUDA kernel from lighthouse_tpu_torch/csrc (one nvcc per
-    source, in parallel), with what ptxas reports per kernel and the
-    dynamic shared memory of the lane-group kernels K2 and K3;
- 2b. the register-resident Fp product of K2 and K3 alone
+    source, in parallel), with what ptxas reports per kernel (K1's window
+    body on its own line: registers, stack frame, spills) and the dynamic
+    shared memory of the lane-group kernels K2 and K3;
+ 2b. the register-resident Fp product of K1's window body, K2 and K3 alone
     (ops/fp_product.py): one thread's dependent chain (latency) and every
     SM full of chains (product rate), both exact against Python integers;
     with K3's fold chain profile, its floor = dependent product steps x
@@ -21,7 +22,12 @@ non-zero without its result line:
     the signature subgroup policy runs once per signature (memoized);
  4. every kernel against its plain PyTorch version, on the card, on the
     inputs the main path gives it, exact equality of canonical words;
-    each kernel's median time, the plain version's time and the bound;
+    each kernel's device time (cuda_build.time_ms: calls queued behind a
+    device-side sleep, so the host's wrapper work is not counted), the
+    plain version's time and the bound (K1's window body: the products of
+    the rows its lanes run, ops/ladder_rows.py `lane_products`); then K1's window body on
+    an edge batch of 256 lanes a group (identity points, zero digits,
+    every digit +8 or -8, the top window's carry, mixed signs);
  5. end to end through bls.api.verify_signature_sets(device="cuda"): the
     slot (grouped, indexed) and the flat batch verify True, a forged
     signature False, 4 sets cross-checked with the ref backend; launch
@@ -38,8 +44,13 @@ non-zero without its result line:
     against its plain version; the flat batch's per-set check (a forged
     set, an infinity signature, 4 sets against the ref backend);
  8. the tensor-core probe (lighthouse_tpu_torch.ops.mma_probe), int8 and
-    bf16, exact against the probe's numpy check and the plain version;
+    bf16, exact against the probe's numpy check and the plain version,
+    kernel and library call timed the same way (and each once more in one
+    synchronised call, cuda_build.call_ms, which shows the host's share of
+    a few-microsecond call); its launches are those of one `contract` call;
  9. the kernels line, then {"ok": true, "device": {...}} as the last line.
+
+The kernel records also go to chiprun_out/chip_smoke_records.json.
 
 Without a CUDA device the script exits 2 and prints no result.
 """
@@ -76,6 +87,7 @@ def emit(phase: str, **kw) -> None:
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -87,7 +99,9 @@ def main() -> int:
     from lighthouse_tpu_torch.bls.device_pubkey_table import DevicePubkeyTable
     from lighthouse_tpu_torch.ops import batch_verify as bv
     from lighthouse_tpu_torch.ops import cuda_build, curve, curve_kernels, field as fd
-    from lighthouse_tpu_torch.ops import final_exp, fp_product, lanes, ladder, miller, mma_probe
+    from lighthouse_tpu_torch.ops import final_exp, fp_product, lanes, ladder, ladder_rows, miller
+    from lighthouse_tpu_torch.ops import mma_probe
+    from lighthouse_tpu_torch.ops import window_ladder
     from lighthouse_tpu_torch.crypto.ref_curve import G2 as RG2
 
     os.makedirs(OUT, exist_ok=True)
@@ -117,6 +131,12 @@ def main() -> int:
                                                       lanes.K3_SET_LANES)}
     emit("build", seconds=time.perf_counter() - t0, nvcc=cuda_build.nvcc_version(), ptxas=ptxas,
          lane_shared_bytes=lane_smem)
+    k1_ptxas = {
+        name: dict(rec, **ptxas["ladder"]["functions"].get(name, {}))
+        for name, rec in ptxas["ladder"]["kernels"].items() if "window_kernel" in name
+    }
+    emit("k1_ptxas", kernels=k1_ptxas)
+    assert len(k1_ptxas) == 2, "K1's window body: expected a G1 and a G2 kernel"
 
     # ---------------------------------------- 2b. the Fp product alone
     prod = fp_product.measure(dev)
@@ -216,9 +236,15 @@ def main() -> int:
                 lambda: curve_kernels.lane_sum_plain(pk, K), nb(pk))
         agg = curve_kernels.lane_sum(pk, K)
         ladder_inputs[label] = {1: agg, 2: sig, "bits": bits}
+        # the window body's products: those of the rows its lanes run (a G2
+        # row is an Fp2 product of 2.5 products' multiply-adds), not the
+        # plain version's
+        k1_products = {w: pt[0].shape[-1] * ladder_rows.lane_products(w, int(mags.shape[0]))
+                       for w, pt in ((1, agg), (2, sig))}
         recs["ladder_g1"] = hold(
             "ladder_g1", lambda: ladder.ladder(agg, mags, negs),
-            lambda: ladder.ladder_plain(agg, mags, negs), nb(agg, mags, negs))
+            lambda: ladder.ladder_plain(agg, mags, negs), nb(agg, mags, negs),
+            products=k1_products[1])
         pk_r = ladder.ladder(agg, mags, negs)
         if m.grouped:
             Sg = m.set_mask.shape[1]
@@ -232,7 +258,8 @@ def main() -> int:
         pk_aff = curve_kernels.to_affine(pk_r)
         recs["ladder_g2"] = hold(
             "ladder_g2", lambda: ladder.ladder(sig, mags, negs),
-            lambda: ladder.ladder_plain(sig, mags, negs), nb(sig, mags, negs))
+            lambda: ladder.ladder_plain(sig, mags, negs), nb(sig, mags, negs),
+            products=k1_products[2])
         sig_r = ladder.ladder(sig, mags, negs)
         recs["lane_sum_g2"] = hold(
             "lane_sum_g2", lambda: curve_kernels.lane_sum(sig_r, S),
@@ -255,6 +282,44 @@ def main() -> int:
             lambda: final_exp.fold_final_exp_plain(f), nb(f))
         value, ok = final_exp.fold_final_exp(f)
         assert bool(ok), f"{label}: stage-by-stage verdict is not 1"
+
+    # K1's window body on an edge batch: 128 live and 128 identity lanes (the
+    # padding) of the slot's ladder inputs, digits by lane mod 8 (zero; +8;
+    # -8; the recoding of 2^64 - 1, whose top window takes the carry; of
+    # 0x88..88, every digit 8; random magnitudes and signs, signs on zero
+    # digits too; +8 and -8 alternating; random scalars)
+    W = window_ladder.num_windows(64)
+    rng = np.random.default_rng(5)
+    edge_bits = torch.from_numpy(rng.integers(0, 2, (256, 64)).astype(np.int32))
+    edge_bits[3::8] = 1
+    edge_bits[4::8] = torch.tensor([(0x8888888888888888 >> i) & 1 for i in range(64)], dtype=torch.int32)
+    em, en = window_ladder.recode_bits(edge_bits)
+    em, en = em.to(torch.int32), en.to(torch.int32)
+    em[:, 0::8], en[:, 0::8] = 0, 0
+    em[:, 1::8], en[:, 1::8] = 8, 0
+    em[:, 2::8], en[:, 2::8] = 8, 1
+    em[:, 5::8] = torch.from_numpy(rng.integers(0, 9, (W, 32)).astype(np.int32))
+    en[:, 5::8] = torch.from_numpy(rng.integers(0, 2, (W, 32)).astype(np.int32))
+    em[:, 6::8] = 8
+    en[:, 6::8] = (torch.arange(W) % 2).to(torch.int32)[:, None]
+    em, en = em.contiguous().to(dev), en.contiguous().to(dev)
+    edge = {}
+    for w in (1, 2):
+        src = ladder_inputs["grouped"][w]
+        at_inf = (src[2] == 0).all(dim=1).all(dim=0)
+        inf_lanes, live_lanes = at_inf.nonzero().flatten(), (~at_inf).nonzero().flatten()
+        assert len(inf_lanes) >= 128 and len(live_lanes) >= 128, f"edge batch G{w}: lanes"
+        cols = torch.cat([live_lanes[:128], inf_lanes[:128]])[torch.from_numpy(rng.permutation(256)).to(dev)]
+        pt = tuple(c[..., cols].contiguous() for c in src)
+        identity = int((pt[2] == 0).all(dim=1).all(dim=0).sum())
+        out_k = ladder.ladder(pt, em, en)
+        out_p = ladder.ladder_plain(pt, em, en)
+        err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in zip(out_k, out_p))
+        edge[f"ladder_g{w}"] = {"lanes": 256, "identity_lanes": identity, "max_abs_err": err,
+                                "held": err == 0}
+        assert err == 0, f"K1 G{w}: the edge batch differs from the plain version"
+    records["edge"] = edge
+    emit("k1_edge", windows=W, top_window_digits=sorted(set(em[-1].tolist())), **edge)
 
     # --------------------------------------------------- 5. end to end
     def e2e(label, sets, seed):
@@ -415,16 +480,19 @@ def main() -> int:
          launches=flat_per_set_launches)
 
     # ------------------------------------------- 8. tensor-core probe
-    cuda_build.reset_launches()
     probe = {form: mma_probe.probe(form, dev) for form in mma_probe.FORMS}
-    probe_launches = dict(cuda_build.LAUNCHES)
+    probe_launches = {}
     for form, prec in probe.items():
+        M, X = mma_probe.operands(*mma_probe.probe_inputs(), form, dev)
+        cuda_build.reset_launches()
+        mma_probe.contract(M, X, form, require_kernel=True)
+        probe_launches[f"mma_probe_{form}"] = cuda_build.LAUNCHES[f"mma_probe_{form}"]
         emit("mma_probe", **prec, launches=probe_launches[f"mma_probe_{form}"])
         assert prec["exact"], f"mma_probe {form}: not exact"
-        M, X = mma_probe.operands(*mma_probe.probe_inputs(), form, dev)
         rec = hold(f"mma_probe_{form}", lambda: mma_probe.contract(M, X, form, require_kernel=True),
                    lambda: mma_probe.contract_plain(M, X), nb(M, X), bound=mma_probe.bound(form))
-        records.setdefault("probe", {})[f"mma_probe_{form}"] = dict(rec, library_ms=prec["library_ms"])
+        records.setdefault("probe", {})[f"mma_probe_{form}"] = dict(
+            rec, library_ms=prec["library_ms"], library_call_ms=prec["library_call_ms"])
 
     # --------------------------------------------------- 9. kernels line
     csrc = "lighthouse_tpu_torch/csrc/"

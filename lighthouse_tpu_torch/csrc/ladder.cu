@@ -16,67 +16,340 @@
 //
 // What bounds them on the H100: integer multiply-adds. For a 64-bit scalar
 // the window body costs 17 x (4 doublings + 1 addition) plus the 8-entry
-// table, ~828 Fp products per G1 lane and ~2,484 per G2 lane (Karatsuba
-// Fp2); the chain 63 doublings and one addition per set bit (~32), ~888 /
-// 2,664; w2 32 x (2 doublings + 1 addition) plus its table, ~916 / 2,748.
+// table, 816 Fp products per G1 lane and 2,448 per G2 lane (Karatsuba
+// Fp2; 2,040 products' multiply-adds with the lazy reduction below); the
+// chain 63 doublings and one addition per set bit (~32), ~888 / 2,664; w2
+// 32 x (2 doublings + 1 addition) plus its table, ~916 / 2,748.
 // Each product is 288 32x32->64 multiply-adds; the bytes (one read of the
 // point and the digits or bits, one write of the result) are ~1% of that.
 //
-// Design: one thread per lane, the point and the running sum in registers,
-// a table in local memory (9 x 72 words a lane for the window body on G2,
-// 4 x 72 for w2, none for the chain). Digits arrive pre-recoded -- signed
-// window-major (W, B) for `window`, MSB-first 2-bit (W, B) for `w2`, as the
-// JAX kernels take them -- and the chain reads the (n_bits, B) bits. The
-// formulas are the header's RCB Algorithm 7/9 in the stage order of
-// curve.ProjectiveGroup, and each body applies them in the order of its
-// JAX counterpart, so the projective X:Y:Z equal the plain version's word
-// for word. w2's digit 0 adds the identity entry, with no branch, as
-// window2_step does; the chain skips the addition of a clear bit, which
-// leaves the same words as the JAX select.
+// Design of `chain` and `w2`: one thread per lane, the point and the
+// running sum in registers, w2's table in local memory (4 x 72 words a lane
+// on G2). The bits are the (n_bits, B) LSB-first bits, w2's digits the
+// MSB-first 2-bit (W, B) digits. The formulas are the header's RCB
+// Algorithm 7/9 in the stage order of curve.ProjectiveGroup, and each body
+// applies them in the order of its JAX counterpart, so the projective
+// X:Y:Z equal the plain version's word for word. w2's digit 0 adds the
+// identity entry, with no branch, as window2_step does; the chain skips
+// the addition of a clear bit, which leaves the same words as the JAX
+// select. ptxas -v (nvcc 12.9, sm_90a) gives both a local-memory frame for
+// the point structs that go by reference to the header's __noinline__
+// field functions.
 //
-// ptxas -v (nvcc 12.9, sm_90a), window body: G1 94 registers, G2 190
-// registers, 0 bytes of register spills; the table and the point structs
-// passed to the __noinline__ field functions live in a per-thread stack
-// frame of 2,352 bytes (G1) and 4,944 bytes (G2) in local memory.
+// Design of `window` (the verify path): two threads a lane on G1 and G2
+// alike, the lane's values in a file of Fp slots in shared memory, its
+// products register-resident and inlined (fp_reg.cuh), so nothing of the
+// field arithmetic is in local memory. Each doubling and addition is two
+// rounds of a MUL phase (the stage's independent products, half on each
+// thread) and a LIN phase (the stage's linear recombination, one canonical
+// Fp sum `lin_sum` a row, rows alternating between the threads), a warp
+// barrier after each; an addition first loads sign * table[|d|]. The rows
+// and the slot map are generated (ladder_rows.cuh from ops/ladder_rows.py,
+// which also runs them on Python integers for the CPU tests). A G1 row is
+// one Fp product; a G2 row is one Fp2 product by Karatsuba with lazy
+// reduction: three 24-word products, two Montgomery reductions. Each of
+// the kernel's phases has one site (one product, one reduction, one
+// `lin_sum`), because the card slows when the loop's code outgrows its
+// instruction cache (PERF.md). The table [0..8] P lives outside the thread,
+// in a scratch tensor that the wrapper allocates, [lane][entry][coordinate]
+// [word], 144 w bytes an entry read as 16-byte words; the kernel allocates
+// nothing. Digits arrive pre-recoded, signed window-major (W, B), as the
+// JAX kernel takes them; a magnitude is clamped to 0..8, the sign negates
+// Y of the entry, every value stays canonical, so X:Y:Z equal the plain
+// version's word for word. One design serves the slot (32,768 lanes: the
+// card full of lanes, 12 warps an SM on G2, where shared memory is the
+// limit) and the flat batch (1,024 lanes: a lane's chain of dependent
+// products, halved by the two threads). ptxas -v (nvcc 12.9, sm_90a): G1
+// 76 registers, G2 168, no stack frame, no spills.
 
 #include <cuda_runtime.h>
 
 #include "bls12_381.cuh"
+#include "fp_reg.cuh"
+#include "ladder_rows.cuh"
 
 using namespace bls;
 
-template <class F>
-__global__ void ladder_kernel(const int32_t* __restrict__ X,
-                              const int32_t* __restrict__ Y,
-                              const int32_t* __restrict__ Z,
-                              const int32_t* __restrict__ mags,
-                              const int32_t* __restrict__ negs, int n_windows,
-                              int B, int32_t* oX, int32_t* oY, int32_t* oZ) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  Proj<F> table[9];
-  proj_identity(table[0]);
-  proj_load(table[1], X, Y, Z, lane, B);
-  // even entries by doubling, odd by one addition (tcurve.window_table)
-  for (int d = 2; d <= 8; d++) {
-    if (d % 2 == 0)
-      proj_dbl(table[d], table[d / 2]);
-    else
-      proj_add(table[d], table[d - 1], table[1]);
+// ------------------------------------------------------------ window body
+
+namespace k1w {
+
+using fpr::add_words;
+using fpr::fp_add;
+using fpr::fp_mul;
+using fpr::fp_sub;
+using fpr::lin_sum;
+using fpr::load_slot;
+using fpr::NW;
+using fpr::ONE_W;
+using fpr::store_slot;
+using fpr::u32;
+using fpr::u64;
+using k1rows::BLOCK;
+using k1rows::ENTRIES;
+using k1rows::T;
+
+template <int W>
+struct Width;
+template <>
+struct Width<1> {
+  static constexpr int SLOTS = k1rows::SLOTS_G1, WORDS = k1rows::WORDS_G1;
+  static __device__ __forceinline__ const u32* table() { return k1rows::TABLE_G1; }
+};
+template <>
+struct Width<2> {
+  static constexpr int SLOTS = k1rows::SLOTS_G2, WORDS = k1rows::WORDS_G2;
+  static __device__ __forceinline__ const u32* table() { return k1rows::TABLE_G2; }
+};
+
+// p^2 and 2 p^2: the offsets that keep T0 and T1 of `fp2_row` non-negative
+__constant__ u32 P2_W[2 * NW] = {
+    0x1c718e39u, 0x26aa0000u, 0x76382eabu, 0x7ced6b1du, 0x62113cfdu, 0x162c3383u,
+    0x3e71b743u, 0x66bf91edu, 0x7091a049u, 0x292e85a8u, 0x86185c7bu, 0x1d68619cu,
+    0x0978ef01u, 0xf5314933u, 0x16ddca6eu, 0x50a62cfdu, 0x349e8bd0u, 0x66e59e49u,
+    0x0e7046b4u, 0xe2dc90e5u, 0xa22f25e9u, 0x4bd278eau, 0xb8c35fc7u, 0x02a437a4u};
+__constant__ u32 P2X2_W[2 * NW] = {
+    0x38e31c72u, 0x4d540000u, 0xec705d56u, 0xf9dad63au, 0xc42279fau, 0x2c586706u,
+    0x7ce36e86u, 0xcd7f23dau, 0xe1234092u, 0x525d0b50u, 0x0c30b8f6u, 0x3ad0c339u,
+    0x12f1de02u, 0xea629266u, 0x2dbb94ddu, 0xa14c59fau, 0x693d17a0u, 0xcdcb3c92u,
+    0x1ce08d68u, 0xc5b921cau, 0x445e4bd3u, 0x97a4f1d5u, 0x7186bf8eu, 0x05486f49u};
+
+// T += t, T -= t (neg) or nothing (!keep), over 25 words in two's
+// complement: only the final sums, in [0, 6 p^2), are read
+__device__ __forceinline__ void wide_acc(u32 T[2 * NW + 1], const u32 t[2 * NW + 1], bool neg,
+                                         bool keep) {
+  const u32 flip = neg ? 0xffffffffu : 0u, m = keep ? 0xffffffffu : 0u;
+  u64 c = neg && keep ? 1u : 0u;  // T + ~t + 1 = T - t
+#pragma unroll
+  for (int k = 0; k < 2 * NW + 1; k++) {
+    c += (u64)T[k] + ((t[k] ^ flip) & m);
+    T[k] = (u32)c;
+    c >>= 32;
   }
-  Proj<F> acc;
-  proj_identity(acc);
-  for (int j = 0; j < n_windows; j++) {
-    const int wi = n_windows - 1 - j;  // MSB-first over LSB-first storage
-    for (int k = 0; k < 4; k++) proj_dbl(acc, acc);
-    int mag = mags[(size_t)wi * B + lane];
-    mag = mag < 0 ? 0 : (mag > 8 ? 8 : mag);  // recode_bits keeps |d| <= 8
-    Proj<F> t = table[mag];
-    if (negs[(size_t)wi * B + lane]) f_neg(t.Y, t.Y);
-    proj_add(acc, acc, t);
-  }
-  proj_store(oX, oY, oZ, lane, B, acc);
 }
+
+// Karatsuba operand i of the value at slot s (plus the value at s2 unless
+// NONE): component i, canonical (i < 2), or (i = 2) the sum of both
+// components, below 2p and congruent to the canonical components' sum
+__device__ __forceinline__ void kara_operand(u32 x[NW], const u32* f, u32 s, u32 s2, int i) {
+  u32 u[NW];
+  if (i < 2) {
+    load_slot(x, f, s + i);
+    if (s2 != k1rows::NONE) {
+      load_slot(u, f, s2 + i);
+      fp_add(x, x, u);
+    }
+    return;
+  }
+  load_slot(x, f, s);
+  load_slot(u, f, s + 1);
+  add_words(x, x, u);
+  if (s2 != k1rows::NONE) {  // four canonical terms, below 4p: take 2p off once
+    load_slot(u, f, s2);
+    add_words(x, x, u);
+    load_slot(u, f, s2 + 1);
+    add_words(x, x, u);
+    const u32 p2[NW] = {0xffff5556u, 0x73fdffffu, 0x62a7ffffu, 0x3d57fffdu, 0xed61ec48u,
+                        0xce61a541u, 0xe70a257eu, 0xc8ee9709u, 0x869759aeu, 0x96374f6cu,
+                        0x72ffcd34u, 0x340223d4u};  // 2p
+    u32 d[NW];
+    u64 borrow = 0;
+#pragma unroll
+    for (int k = 0; k < NW; k++) {
+      const u64 v = (u64)x[k] - p2[k] - borrow;
+      d[k] = (u32)v;
+      borrow = v >> 63;
+    }
+#pragma unroll
+    for (int k = 0; k < NW; k++) x[k] = borrow ? x[k] : d[k];
+  }
+}
+
+// slots dst, dst + 1 <- the Fp2 product of values (a + a2)(b + b2),
+// Karatsuba with lazy reduction: the three 24-word products P0 = a0 b0,
+// P1 = a1 b1 (canonical operands) and P2 of the operand sums (each below
+// 2p) through one product site, summed unreduced into T0 = P0 - P1 + p^2
+// in [0, 2 p^2) and T1 = P2 - P0 - P1 + 2 p^2 in [0, 6 p^2), then two
+// Montgomery reductions instead of three (6 p^2 < p 2^384 keeps each below
+// 2p before its last subtraction)
+__device__ __forceinline__ void fp2_row(u32* f, u32 dst, u32 sa, u32 sa2, u32 sb, u32 sb2) {
+  u32 T0[2 * NW + 1], T1[2 * NW + 1];
+#pragma unroll
+  for (int k = 0; k < 2 * NW + 1; k++) {
+    T0[k] = k < 2 * NW ? P2_W[k] : 0u;
+    T1[k] = k < 2 * NW ? P2X2_W[k] : 0u;
+  }
+#pragma unroll 1
+  for (int i = 0; i < 3; i++) {
+    u32 x[NW], y[NW], t[2 * NW + 1];
+    kara_operand(x, f, sa, sa2, i);
+    kara_operand(y, f, sb, sb2, i);
+    fpr::mul_wide(t, x, y);
+    wide_acc(T0, t, i == 1, i < 2);
+    wide_acc(T1, t, i < 2, true);
+  }
+#pragma unroll 1
+  for (int j = 0; j < 2; j++) {
+    u32 t[2 * NW + 1], r[NW];
+#pragma unroll
+    for (int k = 0; k < 2 * NW + 1; k++) t[k] = j ? T1[k] : T0[k];
+    fpr::mont_reduce(r, t);
+    store_slot(f, dst + j, r);
+  }
+}
+
+// MUL: this thread's rows of phase p (D1, D3, A1, A3), each (a + a2)(b +
+// b2) over values, a2 or b2 NONE where absent
+template <int W>
+__device__ __forceinline__ void mul_rows(u32* f, const u32* tab, int p, int tid) {
+  const u32 idx = tab[k1rows::MUL_INDEX + p * T + tid];
+  const int r0 = idx & 0xffffu, n = idx >> 16;
+#pragma unroll 1
+  for (int k = 0; k < n; k++) {
+    const u32 r = tab[r0 + k];
+    const u32 sa = (r >> 6) & 63u, sa2 = (r >> 12) & 63u, sb = (r >> 18) & 63u,
+              sb2 = (r >> 24) & 63u;
+    if constexpr (W == 1) {
+      u32 a[NW], b[NW], u[NW];
+      load_slot(a, f, sa);
+      if (sa2 != k1rows::NONE) {
+        load_slot(u, f, sa2);
+        add_words(a, a, u);  // below 2p, as fp_mul takes it
+      }
+      load_slot(b, f, sb);
+      if (sb2 != k1rows::NONE) {
+        load_slot(u, f, sb2);
+        add_words(b, b, u);
+      }
+      fp_mul(a, a, b);
+      store_slot(f, r & 63u, a);
+    } else {
+      fp2_row(f, r & 63u, sa, sa2, sb, sb2);
+    }
+  }
+}
+
+// LIN: this thread's rows of phase p (DBL_MID, DBL_OUT, ADD_MID, ADD_OUT),
+// each one canonical Fp sum sum_t c_t slot_t
+__device__ __forceinline__ void lin_rows(u32* f, const u32* tab, int p, int tid) {
+  const u32 idx = tab[k1rows::LIN_INDEX + p * T + tid];
+  const int r0 = idx & 0xffffu, n = idx >> 16;
+#pragma unroll 1
+  for (int k = 0; k < n; k++) {
+    const u32 r = tab[r0 + k];
+    u32 x[NW];
+    lin_sum(x, tab + (r >> 16), (r >> 8) & 255u, f, 0u, true);
+    store_slot(f, r & 255u, x);
+  }
+}
+
+// ADD_IN: the addend V3..V5 <- sign * entry (its Y negated for a negative
+// digit), slot k of the entry on thread k mod T
+template <int W>
+__device__ __forceinline__ void add_in(u32* f, const u32* entry, bool neg, int tid) {
+  for (int k = tid; k < 3 * W; k += T) {
+    u32 x[NW], z[NW], n[NW];
+    load_slot(x, entry, k);
+#pragma unroll
+    for (int j = 0; j < NW; j++) z[j] = 0u;
+    fp_sub(n, z, x);
+    const bool flip = neg && k >= W && k < 2 * W;
+#pragma unroll
+    for (int j = 0; j < NW; j++) x[j] = flip ? n[j] : x[j];
+    store_slot(f, 3 * W + k, x);
+  }
+}
+
+// the point V0..V2 <- the identity (0 : 1 : 0)
+template <int W>
+__device__ __forceinline__ void set_identity(u32* p) {
+  for (int i = 0; i < 3 * W * NW; i++) p[i] = i >= W * NW && i < W * NW + NW ? ONE_W[i - W * NW] : 0u;
+}
+
+// n words between a group's file and the table (16-byte aligned both)
+__device__ __forceinline__ void copy_words(u32* dst, const u32* src, int n) {
+  for (int q = 0; q < n / 4; q++)
+    reinterpret_cast<uint4*>(dst)[q] = reinterpret_cast<const uint4*>(src)[q];
+}
+
+// A lane a group of T threads: the table [0..8] P into the scratch `table`
+// (even entries by doubling, odd ones by adding P, as tcurve.window_table),
+// then MSB first per window four doublings and one addition of sign *
+// table[|d|]. A doubling is MUL D1, LIN DBL_MID, MUL D3, LIN DBL_OUT; an
+// addition ADD_IN, MUL A1, LIN ADD_MID, MUL A3, LIN ADD_OUT; a warp
+// barrier after each. Where every thread does the same (the point's loads
+// and stores, the table build's copies), each does all of it.
+template <int W>
+__global__ void __launch_bounds__(BLOCK)
+    window_kernel(const int32_t* __restrict__ X, const int32_t* __restrict__ Y,
+                  const int32_t* __restrict__ Z, const int32_t* __restrict__ mags,
+                  const int32_t* __restrict__ negs, int n_windows, int B, int32_t* table,
+                  int32_t* oX, int32_t* oY, int32_t* oZ) {
+  constexpr int GROUPS = BLOCK / T, SLOTS = Width<W>::SLOTS, WORDS = Width<W>::WORDS;
+  constexpr int ES = 3 * W * NW;  // words of a point, a table entry
+  constexpr int BUILD = ENTRIES - 2;  // table steps, entries 2..8
+  __shared__ uint4 smem[(WORDS + GROUPS * SLOTS * NW) / 4];
+  u32* tab = reinterpret_cast<u32*>(smem);
+  for (int i = threadIdx.x; i < WORDS; i += BLOCK) tab[i] = Width<W>::table()[i];
+  __syncthreads();
+  const int tid = threadIdx.x % T, g = threadIdx.x / T;
+  const int lane = blockIdx.x * GROUPS + g;
+  const unsigned mask = __ballot_sync(0xffffffffu, lane < B);
+  if (lane >= B) return;
+  u32* f = tab + WORDS + g * SLOTS * NW;
+  u32* ent = reinterpret_cast<u32*>(table) + (size_t)lane * ENTRIES * ES;
+  for (int i = 0; i < W * NW; i++) {
+    f[i] = (u32)X[(size_t)i * B + lane];
+    f[W * NW + i] = (u32)Y[(size_t)i * B + lane];
+    f[2 * W * NW + i] = (u32)Z[(size_t)i * B + lane];
+  }
+  copy_words(ent + ES, f, ES);
+  set_identity<W>(ent);
+  const int n_steps = BUILD + 5 * n_windows;
+  for (int s = 0; s < n_steps; s++) {
+    bool is_add;
+    int e = 1;
+    bool neg = false;
+    if (s < BUILD) {
+      const int d = s + 2;
+      is_add = d & 1;
+      if (!is_add) copy_words(f, ent + (d / 2) * ES, ES);
+    } else {
+      const int k = (s - BUILD) % 5, wi = n_windows - 1 - (s - BUILD) / 5;
+      if (s == BUILD) set_identity<W>(f);
+      is_add = k == 4;
+      if (is_add) {
+        const int mag = mags[(size_t)wi * B + lane];
+        e = mag < 0 ? 0 : (mag > ENTRIES - 1 ? ENTRIES - 1 : mag);  // recode_bits keeps |d| <= 8
+        neg = negs[(size_t)wi * B + lane] != 0;
+      }
+    }
+    __syncwarp(mask);
+    if (is_add) {
+      add_in<W>(f, ent + e * ES, neg, tid);
+      __syncwarp(mask);
+    }
+#pragma unroll 1
+    for (int ph = 0; ph < 2; ph++) {
+      const int p = 2 * is_add + ph;
+      mul_rows<W>(f, tab, p, tid);
+      __syncwarp(mask);
+      lin_rows(f, tab, p, tid);
+      __syncwarp(mask);
+    }
+    if (s < BUILD) {
+      copy_words(ent + (s + 2) * ES, f, ES);
+      __syncwarp(mask);  // read by every thread before the next step writes
+    }
+  }
+  for (int i = 0; i < W * NW; i++) {
+    oX[(size_t)i * B + lane] = (int32_t)f[i];
+    oY[(size_t)i * B + lane] = (int32_t)f[W * NW + i];
+    oZ[(size_t)i * B + lane] = (int32_t)f[2 * W * NW + i];
+  }
+}
+
+}  // namespace k1w
 
 // the per-bit double-add chain, LSB first (tcurve.mul_scalar_bits); the
 // last doubling of the addend is never used, so it is not computed
@@ -142,29 +415,31 @@ static int launch(const void* X, const void* Y, const void* Z,
   return (int)cudaGetLastError();
 }
 
-template <class F>
-static int launch_window(const void* X, const void* Y, const void* Z,
-                         const void* mags, const void* negs, int n_windows,
-                         int B, void* oX, void* oY, void* oZ, void* stream) {
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  ladder_kernel<F><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)X, (const int32_t*)Y, (const int32_t*)Z,
-      (const int32_t*)mags, (const int32_t*)negs, n_windows, B, (int32_t*)oX,
-      (int32_t*)oY, (int32_t*)oZ);
+template <int W>
+static int launch_window(const void* X, const void* Y, const void* Z, const void* mags,
+                         const void* negs, int n_windows, int B, void* table, void* oX,
+                         void* oY, void* oZ, void* stream) {
+  constexpr int groups = k1rows::BLOCK / k1rows::T;
+  const int blocks = (B + groups - 1) / groups;
+  k1w::window_kernel<W><<<blocks, k1rows::BLOCK, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)X, (const int32_t*)Y, (const int32_t*)Z, (const int32_t*)mags,
+      (const int32_t*)negs, n_windows, B, (int32_t*)table, (int32_t*)oX, (int32_t*)oY,
+      (int32_t*)oZ);
   return (int)cudaGetLastError();
 }
 
 extern "C" int lh_ladder_g1(const void* X, const void* Y, const void* Z,
                             const void* mags, const void* negs, int n_windows,
-                            int B, void* oX, void* oY, void* oZ, void* stream) {
-  return launch_window<Fp>(X, Y, Z, mags, negs, n_windows, B, oX, oY, oZ, stream);
+                            int B, void* table, void* oX, void* oY, void* oZ,
+                            void* stream) {
+  return launch_window<1>(X, Y, Z, mags, negs, n_windows, B, table, oX, oY, oZ, stream);
 }
 
 extern "C" int lh_ladder_g2(const void* X, const void* Y, const void* Z,
                             const void* mags, const void* negs, int n_windows,
-                            int B, void* oX, void* oY, void* oZ, void* stream) {
-  return launch_window<Fp2>(X, Y, Z, mags, negs, n_windows, B, oX, oY, oZ, stream);
+                            int B, void* table, void* oX, void* oY, void* oZ,
+                            void* stream) {
+  return launch_window<2>(X, Y, Z, mags, negs, n_windows, B, table, oX, oY, oZ, stream);
 }
 
 extern "C" int lh_ladder_g1_chain(const void* X, const void* Y, const void* Z,

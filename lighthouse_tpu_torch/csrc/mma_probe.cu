@@ -10,146 +10,170 @@
 // later tensor-core field product (digit products of the Montgomery
 // multiply as a small integer matrix product).
 //
-// What bounds it on the H100: at the probe's size nothing but the launch.
-// The contraction is 9.4M multiply-adds (5 ns at the int8 rate) and 0.67 MB
-// of operands and results (0.2 us at 3.35 TB/s), far under a launch.
+// What bounds it on the H100: at the probe's size nothing but the launch
+// and one pass over memory. The contraction is 9.4M multiply-adds (5 ns at
+// the int8 rate) and 0.67 MB of operands and results (0.2 us at 3.35 TB/s).
 //
-// Design: hand-written `mma.sync` (Hopper runs the Ampere warp-level MMA;
-// `wgmma` needs 64-row tiles, which this probe does not have):
+// Design: hand-written `mma.sync` (Hopper runs the Ampere warp-level MMA):
 //   int8 -- mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32
 //   bf16 -- mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32
-// One block per (16-row band of M, s): it stages the band of M (16 x L,
-// row-major) and X[s] transposed (B x L, so each fragment register holds
-// consecutive k of one column) in shared memory; each warp then owns 16 x 8
-// output tiles, loads its fragments from shared memory in the PTX ISA's
-// fragment layouts (groupID = lane / 4, threadID_in_group = lane % 4) and
-// accumulates over L in steps of 32 (int8) or 16 (bf16). The float32 sums
-// of the bf16 form are exact integers and leave as int32.
+// SPLIT blocks per s, each a quarter of the columns b. X[s] is stored
+// l-major, but a B fragment register holds consecutive l of one column, so
+// a block stages its columns of X[s], transposed, in shared memory (each
+// element is read by one block): each thread reads 4-byte words of 4 rows
+// (int8) or 2 rows (bf16) and transposes the 4 x 4 bytes or 2 x 2 halves
+// in registers (`__byte_perm`), one 4-byte store per column; rows of the
+// transposed copy are padded by 16 bytes, so the fragment loads of a warp
+// (8 columns x 4 words) fall in distinct banks. Warp w takes the 16-row
+// bands w, w + 4, .. of M and reads their A fragments from M as it is (k
+// is contiguous there), the first band's before the staging so the loads
+// overlap; it walks the block's 8-column tiles of the output, accumulating
+// over L in steps of 32 (int8) or 16 (bf16); each thread writes its 2 x 2
+// results as two 8-byte stores. The float32 sums of the bf16 form are exact integers
+// and leave as int32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+constexpr int THREADS = 128;  // 4 warps: the 4 bands of 16 rows of M
+constexpr int SPLIT = 4;  // blocks an s, each a quarter of the columns
+constexpr int MAX_L = 64;  // A fragments for up to 64 k stay in registers
+constexpr int PAD = 16;  // bytes after each row of the transposed X[s]
 
 template <class T>
 __device__ __forceinline__ uint32_t ld32(const T* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// band [m0, m0 + 16) of M and X[s] transposed into shared memory
-template <class T>
-__device__ __forceinline__ void stage(T* sA, T* sBT, const T* M, const T* X,
-                                      int s, int m0, int L, int B) {
-  for (int i = threadIdx.x; i < 16 * L; i += blockDim.x)
-    sA[i] = M[(size_t)m0 * L + i];
-  const T* Xs = X + (size_t)s * L * B;
-  for (int i = threadIdx.x; i < L * B; i += blockDim.x) {
-    const int l = i / B, b = i % B;  // read along b: coalesced
-    sBT[b * L + l] = Xs[i];
+// columns [b0, b0 + nb) of X[s] (L x B, l-major) -> XT (nb rows of L
+// elements, `stride` bytes apart): int8 in 4 x 4 blocks, bf16 in 2 x 2
+// blocks, one block a thread at a time
+__device__ __forceinline__ void stage_t(unsigned char* XT, const int8_t* X, int L, int B, int b0,
+                                        int nb, int stride) {
+  X += b0;
+  for (int i = threadIdx.x; i < (L / 4) * (nb / 4); i += THREADS) {
+    const int l = 4 * (i / (nb / 4)), b = 4 * (i % (nb / 4));
+    const uint32_t r0 = ld32(X + (size_t)l * B + b), r1 = ld32(X + (size_t)(l + 1) * B + b);
+    const uint32_t r2 = ld32(X + (size_t)(l + 2) * B + b), r3 = ld32(X + (size_t)(l + 3) * B + b);
+    const uint32_t lo01 = __byte_perm(r0, r1, 0x5140), lo23 = __byte_perm(r2, r3, 0x5140);
+    const uint32_t hi01 = __byte_perm(r0, r1, 0x7362), hi23 = __byte_perm(r2, r3, 0x7362);
+    *reinterpret_cast<uint32_t*>(XT + (size_t)b * stride + l) = __byte_perm(lo01, lo23, 0x5410);
+    *reinterpret_cast<uint32_t*>(XT + (size_t)(b + 1) * stride + l) = __byte_perm(lo01, lo23, 0x7632);
+    *reinterpret_cast<uint32_t*>(XT + (size_t)(b + 2) * stride + l) = __byte_perm(hi01, hi23, 0x5410);
+    *reinterpret_cast<uint32_t*>(XT + (size_t)(b + 3) * stride + l) = __byte_perm(hi01, hi23, 0x7632);
   }
+}
+
+__device__ __forceinline__ void stage_t(unsigned char* XT, const __nv_bfloat16* X, int L, int B,
+                                        int b0, int nb, int stride) {
+  X += b0;
+  for (int i = threadIdx.x; i < (L / 2) * (nb / 2); i += THREADS) {
+    const int l = 2 * (i / (nb / 2)), b = 2 * (i % (nb / 2));
+    const uint32_t r0 = ld32(X + (size_t)l * B + b), r1 = ld32(X + (size_t)(l + 1) * B + b);
+    *reinterpret_cast<uint32_t*>(XT + (size_t)b * stride + 2 * l) = __byte_perm(r0, r1, 0x5410);
+    *reinterpret_cast<uint32_t*>(XT + (size_t)(b + 1) * stride + 2 * l) = __byte_perm(r0, r1, 0x7632);
+  }
+}
+
+// one warp-level MMA: c += a b on fragments
+__device__ __forceinline__ void mma(int32_t (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// T the operand type, Acc the accumulator, DEPTH the k of one MMA; a
+// fragment register holds 4 / sizeof(T) consecutive k. Block (s, q) stages
+// and writes columns [q B / SPLIT, (q + 1) B / SPLIT) of out[s]; each warp
+// loads its band's A fragments first, so their loads overlap the staging.
+template <class T, class Acc, int DEPTH>
+__global__ void __launch_bounds__(THREADS)
+    mma_probe_kernel(const T* __restrict__ M, const T* __restrict__ X, int L, int K, int B,
+                     int32_t* out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int PER = 4 / sizeof(T);  // elements a 32-bit register
+  constexpr int STEPS = MAX_L / DEPTH;
+  const int s = blockIdx.x, nb = B / SPLIT, b0 = blockIdx.y * nb;
+  const int stride = L * (int)sizeof(T) + PAD;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  uint32_t a[STEPS][4];
+  auto load_a = [&](int m0) {  // the band's A fragments, from M as it is
+    const T* arow = M + (size_t)(m0 + g) * L;
+    const T* arow8 = arow + (size_t)8 * L;
+#pragma unroll
+    for (int ks = 0; ks < STEPS; ks++) {
+      const int k0 = ks * DEPTH;
+      if (k0 < L) {
+        a[ks][0] = ld32(arow + k0 + PER * t);
+        a[ks][1] = ld32(arow8 + k0 + PER * t);
+        a[ks][2] = ld32(arow + k0 + DEPTH / 2 + PER * t);
+        a[ks][3] = ld32(arow8 + k0 + DEPTH / 2 + PER * t);
+      }
+    }
+  };
+  load_a(16 * warp);  // issued before the staging, so the loads overlap
+  stage_t(smem, X + (size_t)s * L * B, L, B, b0, nb, stride);
   __syncthreads();
-}
-
-template <class Acc>
-__device__ __forceinline__ void store_tile(int32_t* out, const Acc (&c)[4],
-                                           int s, int m0, int n0, int K, int B,
-                                           int g, int t) {
-  int32_t* o = out + ((size_t)s * K + m0) * B + n0;
-  o[g * B + 2 * t] = (int32_t)c[0];
-  o[g * B + 2 * t + 1] = (int32_t)c[1];
-  o[(g + 8) * B + 2 * t] = (int32_t)c[2];
-  o[(g + 8) * B + 2 * t + 1] = (int32_t)c[3];
-}
-
-__global__ void mma_probe_i8_kernel(const int8_t* __restrict__ M,
-                                    const int8_t* __restrict__ X, int L, int K,
-                                    int B, int32_t* out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* sA = reinterpret_cast<int8_t*>(smem);
-  int8_t* sBT = sA + 16 * L;
-  const int m0 = blockIdx.x * 16, s = blockIdx.y;
-  stage(sA, sBT, M, X, s, m0, L, B);
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  for (int nt = threadIdx.x >> 5; nt < B / 8; nt += blockDim.x >> 5) {
-    const int8_t* bcol = sBT + (nt * 8 + g) * L;
-    int32_t c[4] = {0, 0, 0, 0};
-    for (int k0 = 0; k0 < L; k0 += 32) {
-      const uint32_t a0 = ld32(sA + g * L + k0 + 4 * t);
-      const uint32_t a1 = ld32(sA + (g + 8) * L + k0 + 4 * t);
-      const uint32_t a2 = ld32(sA + g * L + k0 + 16 + 4 * t);
-      const uint32_t a3 = ld32(sA + (g + 8) * L + k0 + 16 + 4 * t);
-      const uint32_t b0 = ld32(bcol + k0 + 4 * t);
-      const uint32_t b1 = ld32(bcol + k0 + 16 + 4 * t);
-      asm volatile(
-          "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-          : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+  for (int m0 = 16 * warp; m0 < K; m0 += 16 * (THREADS / 32)) {
+    if (m0 != 16 * warp) load_a(m0);
+    int32_t* o = out + ((size_t)s * K + m0 + g) * B + b0;
+#pragma unroll 4
+    for (int n0 = 0; n0 < nb; n0 += 8) {
+      const unsigned char* bcol = smem + (size_t)(n0 + g) * stride;
+      Acc c[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int ks = 0; ks < STEPS; ks++) {
+        const int k0 = ks * DEPTH;
+        if (k0 < L) {
+          const uint32_t b[2] = {ld32(bcol + sizeof(T) * (k0 + PER * t)),
+                                 ld32(bcol + sizeof(T) * (k0 + DEPTH / 2 + PER * t))};
+          mma(c, a[ks], b);
+        }
+      }
+      *reinterpret_cast<int2*>(o + n0 + 2 * t) = make_int2((int32_t)c[0], (int32_t)c[1]);
+      *reinterpret_cast<int2*>(o + (size_t)8 * B + n0 + 2 * t) =
+          make_int2((int32_t)c[2], (int32_t)c[3]);
     }
-    store_tile(out, c, s, m0, nt * 8, K, B, g, t);
   }
 }
 
-__global__ void mma_probe_bf16_kernel(const __nv_bfloat16* __restrict__ M,
-                                      const __nv_bfloat16* __restrict__ X,
-                                      int L, int K, int B, int32_t* out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sBT = sA + 16 * L;
-  const int m0 = blockIdx.x * 16, s = blockIdx.y;
-  stage(sA, sBT, M, X, s, m0, L, B);
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  for (int nt = threadIdx.x >> 5; nt < B / 8; nt += blockDim.x >> 5) {
-    const __nv_bfloat16* bcol = sBT + (nt * 8 + g) * L;
-    float c[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int k0 = 0; k0 < L; k0 += 16) {
-      const uint32_t a0 = ld32(sA + g * L + k0 + 2 * t);
-      const uint32_t a1 = ld32(sA + (g + 8) * L + k0 + 2 * t);
-      const uint32_t a2 = ld32(sA + g * L + k0 + 8 + 2 * t);
-      const uint32_t a3 = ld32(sA + (g + 8) * L + k0 + 8 + 2 * t);
-      const uint32_t b0 = ld32(bcol + k0 + 2 * t);
-      const uint32_t b1 = ld32(bcol + k0 + 8 + 2 * t);
-      asm volatile(
-          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-          : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-    }
-    store_tile(out, c, s, m0, nt * 8, K, B, g, t);
-  }
-}
-
-// shapes: K a multiple of 16, B of 8, L of 32 (int8) or 16 (bf16); the
-// wrapper checks them, and the staged operands must fit in 48 KB
-static int grid_for(int S, int L, int K, int B, int elem, dim3* grid,
-                    size_t* smem) {
-  *smem = (size_t)(16 + B) * L * elem;
-  if (S < 1 || K % 16 || B % 8 || *smem > 48 * 1024)
+// shapes: K a multiple of 64 (a band for every warp), B of 8 SPLIT, L of
+// 32 (int8) or 16 (bf16) and at most MAX_L; the wrapper checks them
+static int launch_checks(int S, int L, int K, int B, int elem, int depth, size_t* smem) {
+  *smem = (size_t)(B / SPLIT) * (L * elem + PAD);
+  if (S < 1 || K < 16 * (THREADS / 32) || K % (16 * (THREADS / 32)) || B % (8 * SPLIT) ||
+      L % depth || L > MAX_L)
     return (int)cudaErrorInvalidValue;
-  *grid = dim3(K / 16, S);
   return 0;
 }
 
 extern "C" int lh_mma_probe_i8(const void* M, const void* X, int S, int L,
                                int K, int B, void* out, void* stream) {
-  dim3 grid;
   size_t smem;
-  if (L % 32) return (int)cudaErrorInvalidValue;
-  int rc = grid_for(S, L, K, B, 1, &grid, &smem);
+  const int rc = launch_checks(S, L, K, B, 1, 32, &smem);
   if (rc) return rc;
-  mma_probe_i8_kernel<<<grid, 128, smem, (cudaStream_t)stream>>>(
+  mma_probe_kernel<int8_t, int32_t, 32><<<dim3(S, SPLIT), THREADS, smem, (cudaStream_t)stream>>>(
       (const int8_t*)M, (const int8_t*)X, L, K, B, (int32_t*)out);
   return (int)cudaGetLastError();
 }
 
 extern "C" int lh_mma_probe_bf16(const void* M, const void* X, int S, int L,
                                  int K, int B, void* out, void* stream) {
-  dim3 grid;
   size_t smem;
-  if (L % 16) return (int)cudaErrorInvalidValue;
-  int rc = grid_for(S, L, K, B, 2, &grid, &smem);
+  const int rc = launch_checks(S, L, K, B, 2, 16, &smem);
   if (rc) return rc;
-  mma_probe_bf16_kernel<<<grid, 128, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)M, (const __nv_bfloat16*)X, L, K, B,
-      (int32_t*)out);
+  mma_probe_kernel<__nv_bfloat16, float, 16><<<dim3(S, SPLIT), THREADS, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)M, (const __nv_bfloat16*)X, L, K, B, (int32_t*)out);
   return (int)cudaGetLastError();
 }

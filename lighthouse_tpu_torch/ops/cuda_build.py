@@ -1,9 +1,11 @@
 """Build the port's CUDA kernels with nvcc and call them through ctypes.
 
-Each source under `lighthouse_tpu_torch/csrc/` (one per kernel family; K1
-and the helpers include `bls12_381.cuh`, K2, K3 and the product probe
-`lanes.cuh`) compiles at first use into its own shared library with a plain
-C interface under `lighthouse_tpu_torch/build/`:
+Each source under `lighthouse_tpu_torch/csrc/` (one per kernel family; the
+helpers and K1's `chain` and `w2` bodies include `bls12_381.cuh`, K1's
+window body, K2, K3 and the product probe the register arithmetic of
+`fp_reg.cuh`, K2 and K3 through `lanes.cuh`) compiles at first use into its
+own shared library with a plain C interface under
+`lighthouse_tpu_torch/build/`:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o build/lib<name>.so csrc/<name>.cu
@@ -15,7 +17,10 @@ after its launch and `launch()` raises on anything but 0: a refused launch
 never falls back to anything.
 
 `LAUNCHES` counts, per kernel, the launches made through the wrappers;
-`time_ms` times a call on the card with CUDA events.
+`time_ms` times a call's device work on the card with CUDA events, the
+calls queued behind a device-side sleep so that the host's wrapper work
+stays outside the events; `call_ms` times one synchronised call with the
+wrapper's host work inside, to show that share.
 """
 
 import ctypes
@@ -41,8 +46,8 @@ _I = ctypes.c_int
 # source -> {C entry -> argument types}
 SOURCES = {
     "ladder": {
-        "lh_ladder_g1": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
-        "lh_ladder_g2": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+        "lh_ladder_g1": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+        "lh_ladder_g2": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
         "lh_ladder_g1_chain": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
         "lh_ladder_g2_chain": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
         "lh_ladder_g1_w2": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
@@ -176,13 +181,25 @@ def build_all(force: bool = False) -> dict:
 
 def ptxas_summary(text: str) -> dict:
     """ptxas -v output -> {kernel: {"registers", "stack_bytes"}} for the
-    entry functions, plus the spill bytes summed over every function."""
-    kernels = {}
-    entry = None
+    entry functions, the spill bytes summed over every function, and each
+    function's own frame and spills under "functions"."""
+    kernels, functions = {}, {}
+    entry = props = None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             entry = m.group(1)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and props is not None:
+            functions[props] = {"stack_frame": int(m.group(1)), "spill_stores": int(m.group(2)),
+                                "spill_loads": int(m.group(3))}
+            props = None
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and entry is not None:
@@ -193,6 +210,7 @@ def ptxas_summary(text: str) -> dict:
     spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
     return {
         "kernels": kernels,
+        "functions": functions,
         "spill_store_bytes": sum(int(a) for a, _ in spills),
         "spill_load_bytes": sum(int(b) for _, b in spills),
     }
@@ -267,9 +285,62 @@ def launch(source: str, fn: str, kernel: str, *args) -> None:
     LAUNCHES[kernel] += 1
 
 
+# cycles a second that `torch.cuda._sleep` is asked for: at least the
+# card's clock, so a sleep lasts at least as long as asked
+SLEEP_CYCLES_PER_S = 2.0e9
+
+
+def _need_cuda() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError("device-side timing needs a CUDA device")
+
+
+def _queued_ms(fn, calls: int) -> float:
+    """Device ms of one call: `calls` calls queued behind a device-side
+    sleep, bracketed by one event pair. The sleep holds the device until
+    the host has queued every call, so the host's wrapper work (checks,
+    allocation, the ctypes call) overlaps queued device work and the events
+    bracket device work alone; if the device reached the first event before
+    the host had queued the last call, the sleep is lengthened and the run
+    repeated."""
+    sleep_s = 2e-3
+    for _ in range(6):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(sleep_s * SLEEP_CYCLES_PER_S))
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        end.record()
+        host_s = time.perf_counter() - t0
+        reached = start.query()
+        torch.cuda.synchronize()
+        if not reached:
+            return start.elapsed_time(end) / calls
+        sleep_s = 2 * host_s + 2e-3
+    raise RuntimeError("time_ms: the host could not queue the calls ahead of the device")
+
+
 def time_ms(fn, reps: int = 3) -> float:
-    """Median CUDA-event time of one call of `fn` over `reps` calls, after
-    one warm-up call; each call is synchronised."""
+    """Device time of one call of `fn` in ms, without the host's wrapper
+    work: the median over `reps` runs of back-to-back calls queued behind a
+    device-side sleep (`_queued_ms`), each run as many calls as fill about
+    a millisecond (at most 200), after one warm-up call. Needs a CUDA
+    device; `fn` must not synchronise."""
+    _need_cuda()
+    fn()
+    torch.cuda.synchronize()
+    one = _queued_ms(fn, 1)
+    calls = max(1, min(200, int(1.0 / max(one, 1e-3))))
+    return statistics.median(_queued_ms(fn, calls) for _ in range(reps))
+
+
+def call_ms(fn, reps: int = 3) -> float:
+    """The median CUDA-event time of one synchronised call of `fn`, the
+    start event recorded on an idle device before the wrapper runs, so the
+    wrapper's host work is inside the interval: beside `time_ms`, it shows
+    the host's share of a short call."""
+    _need_cuda()
     fn()
     torch.cuda.synchronize()
     times = []

@@ -1,8 +1,9 @@
-"""The register-resident Fp product of `csrc/lanes.cuh`, measured alone.
+"""The register-resident Fp product of `csrc/fp_reg.cuh`, measured alone.
 
 `chain(x, y, length)`: for each column i of the (12, n) word operands,
 `length` dependent Montgomery products x_i <- x_i y_i 2^-384 mod p, with
-lanes.cuh's `fp_mul`, the product K2 and K3 run. CUDA tensors launch
+fp_reg.cuh's `fp_mul`, the product K1's window body, K2 and K3 run;
+`mul_words` models that product word for word. CUDA tensors launch
 `csrc/fp_product.cu` (one chain a thread), CPU tensors run `chain_plain`
 (Python integers). `measure(device)` times one thread's chain (the
 latency of one product, which sets K3's fold chain) and a card full of
@@ -40,6 +41,53 @@ def random_words(n: int, seed: int, device="cpu") -> torch.Tensor:
     w = rng.integers(0, 1 << 32, size=(NW, n), dtype=np.uint64)
     w[NW - 1] %= P >> 352
     return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(device)
+
+
+def reduce_words(t: int) -> int:
+    """Word-level model of fp_reg.cuh `mont_reduce` for 0 <= t < p 2^384:
+    12 Montgomery rows with the kernel's 64-bit carries, each row's carry
+    taken into the next row's last step; asserts that no step overflows
+    and that the value before the last subtraction is below 2p. Returns
+    t 2^-384 mod p."""
+    m32, n0 = 0xFFFFFFFF, (-pow(P, -1, 1 << 32)) % (1 << 32)
+    assert 0 <= t < P << 384
+    pw = [(P >> (32 * j)) & m32 for j in range(NW)]
+    w = [(t >> (32 * k)) & m32 for k in range(2 * NW + 1)]
+    carry = 0
+    for i in range(NW):
+        m = w[i] * n0 & m32
+        c = 0
+        for j in range(NW - 1):
+            c += m * pw[j] + w[i + j]
+            assert c < 1 << 64
+            w[i + j], c = c & m32, c >> 32
+        c += m * pw[NW - 1] + w[i + NW - 1] + carry
+        assert c < 1 << 62
+        w[i + NW - 1], carry = c & m32, c >> 32
+    w[2 * NW - 1] += carry
+    assert w[2 * NW - 1] <= m32 and w[2 * NW] == 0
+    v = sum(w[NW + k] << (32 * k) for k in range(NW))
+    assert v < 2 * P
+    return v - P if v >= P else v
+
+
+def mul_words(a: int, b: int) -> int:
+    """Word-level model of fp_reg.cuh `fp_mul` for a, b < 2p: the SOS
+    product rows (no 64-bit step overflows), then `reduce_words`. Returns
+    a b 2^-384 mod p."""
+    m32 = 0xFFFFFFFF
+    assert 0 <= a < 2 * P and 0 <= b < 2 * P
+    aw = [(a >> (32 * j)) & m32 for j in range(NW)]
+    bw = [(b >> (32 * j)) & m32 for j in range(NW)]
+    t = [0] * (2 * NW + 1)
+    for i in range(NW):
+        c = 0
+        for j in range(NW):
+            c += aw[j] * bw[i] + t[i + j]
+            assert c < 1 << 64
+            t[i + j], c = c & m32, c >> 32
+        t[i + NW] = c
+    return reduce_words(sum(v << (32 * k) for k, v in enumerate(t)))
 
 
 def chain_plain(x, y, length: int) -> torch.Tensor:

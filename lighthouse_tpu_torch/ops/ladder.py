@@ -12,8 +12,11 @@ per `form`, the counterpart of `ladder_pallas(kind=...)`:
               same bits, turned into MSB-first digits by
               `window_ladder.digits_w2` (on the tensors' device).
 
-The CUDA source is `lighthouse_tpu_torch/csrc/ladder.cu`; the plain versions
-are the ports of `window_ladder.mul_scalar_bits_windowed_t` and
+The CUDA source is `lighthouse_tpu_torch/csrc/ladder.cu`; the window body
+runs the rows of `ops/ladder_rows.py` on two threads a lane and keeps its
+table [0..8] P in a scratch tensor that this wrapper allocates (85 MB for
+32,768 G2 lanes). The plain versions are the ports of
+`window_ladder.mul_scalar_bits_windowed_t` and
 `tcurve.mul_scalar_bits` / `mul_scalar_bits_w2` over `ops/curve.py`.
 
 Operands are kernel words: a point (X, Y, Z), each (w, 12, B) int32
@@ -24,6 +27,7 @@ canonical Montgomery words, w = 1 for G1 and 2 for G2; digits and bits are
 import torch
 
 from lighthouse_tpu_torch.ops import cuda_build, curve, field as fd
+from lighthouse_tpu_torch.ops import ladder_rows as lr
 from lighthouse_tpu_torch.ops import window_ladder as wl
 
 FORMS = ("window", "chain", "w2")
@@ -74,9 +78,12 @@ def ladder(pt, *operands, form: str = "window", require_kernel: bool = False):
     if B:
         if form == "window":
             entry, kernel = f"lh_ladder_g{w}", f"ladder_g{w}"
-            args = (*operands, n)
+            # the table [0..8] P a lane, [lane][entry][coordinate][word]
+            table = torch.empty((B, lr.TABLE_ENTRIES, 3 * w, fd.NW), dtype=torch.int32,
+                                device=X.device)
+            args = (*operands, n, B, table)
         else:
             entry, kernel = f"lh_ladder_g{w}_{form}", f"ladder_g{w}_{form}"
-            args = (operands[0], n)
-        cuda_build.launch("ladder", entry, kernel, *pt, *args, B, *out)
+            args = (operands[0], n, B)
+        cuda_build.launch("ladder", entry, kernel, *pt, *args, *out)
     return out

@@ -288,9 +288,20 @@ def _ref_bits(ref):
     return region << 10 | off
 
 
+def term_word(ref_bits: int, c: int) -> int:
+    """A term of a row's sum as fp_reg.cuh `lin_sum` reads it, for K1's
+    rows too: slot reference (bits 0-11) | signed coefficient << 12."""
+    assert 0 <= ref_bits < 1 << 12 and -(1 << 19) <= c < (1 << 19)
+    return (ref_bits | (c << 12)) & 0xFFFFFFFF
+
+
+def term_parts(t: int):
+    """term_word's inverse: (slot reference, coefficient)."""
+    return t & 0xFFF, (t >> 12) - ((t >> 31) << 20)  # arithmetic shift of the 32-bit word
+
+
 def _term(slot, c):
-    assert -(1 << 19) <= c < (1 << 19)
-    return (_ref_bits(slot.phys) | (c << 12)) & 0xFFFFFFFF
+    return term_word(_ref_bits(slot.phys), c)
 
 
 class KernelTables:
@@ -357,11 +368,28 @@ def _slot_index(ref_bits, bases):
 def _sum(terms, bases, file, reads):
     s = 0
     for t in terms:
-        idx = _slot_index(t & 0xFFF, bases)
-        c = (t >> 12) - ((t >> 31) << 20)  # arithmetic shift of the 32-bit word
+        ref, c = term_parts(t)
+        idx = _slot_index(ref, bases)
         reads.add(idx)
         s += c * file[idx]
     return s % P
+
+
+def commit_step(file: list, rows, where="") -> None:
+    """One step (a phase, in K1's words) of a group's rows, each (writes
+    {slot: value}, reads {slot}) computed from `file` as it was before the
+    step, applied to `file` with the rule the kernels' one barrier a step
+    relies on: no slot written twice, and no row reading a slot that
+    another row writes (a row may overwrite what it reads itself)."""
+    writes = {}
+    for w, _ in rows:
+        for dst, v in w.items():
+            assert dst not in writes, f"{where}: slot {dst} written twice"
+            writes[dst] = v
+    for w, reads in rows:
+        assert not (set(reads) - set(w)) & set(writes), f"{where}: read/write race"
+    for dst, v in writes.items():
+        file[dst] = v
 
 
 def emulate(kt: KernelTables, calls: str, file: list, stats=None) -> list:
@@ -378,7 +406,7 @@ def emulate(kt: KernelTables, calls: str, file: list, stats=None) -> list:
         s0, s1 = tab[sec["PROGS"] + prog], tab[sec["PROGS"] + prog + 1]
         for s in range(s0, s1):
             r0, r1 = tab[sec["STEPS"] + s], tab[sec["STEPS"] + s + 1]
-            writes, reads_by = {}, []
+            rows = []
             for r in range(r0, r1):
                 w0, w1 = tab[sec["ROWS"] + 2 * r], tab[sec["ROWS"] + 2 * r + 1]
                 nl, nr = (w0 >> 14) & 63, (w0 >> 20) & 63
@@ -389,23 +417,18 @@ def emulate(kt: KernelTables, calls: str, file: list, stats=None) -> list:
                     v = mont_mul(v, _sum(terms[nl:], bases, file, reads))
                     if stats is not None:
                         stats["products"] = stats.get("products", 0) + 1
-                dst = _slot_index(w0 & 0xFFF, bases)
-                assert dst not in writes, f"step {s}: slot {dst} written twice"
-                writes[dst] = v
-                reads_by.append(reads - {dst})
-            for reads in reads_by:
-                assert not reads & set(writes), f"step {s}: read/write race"
-            for dst, v in writes.items():
-                file[dst] = v
+                rows.append(({_slot_index(w0 & 0xFFF, bases): v}, reads))
+            commit_step(file, rows, f"step {s}")
             if stats is not None:
                 stats["steps"] = stats.get("steps", 0) + 1
     return file
 
 
 def lin_sum_words(xs, cs):
-    """Word-level model of lanes.cuh `lin_sum`: sum_t cs[t] xs[t] mod p for
-    canonical xs and sum |cs| <= 64. Each word j accumulates k * x_j in 64
-    bits, with x complemented for a negative coefficient -k (so that term
+    """Word-level model of fp_reg.cuh `lin_sum`: sum_t cs[t] xs[t] mod p for
+    canonical xs and sum |cs| <= 64 (K1's rows go to 256, tested too). Each
+    word j accumulates k * x_j in 64 bits, with x complemented for a
+    negative coefficient -k (so that term
     adds k (2^384 - 1 - x)); one carry pass folds in kneg (p + 1) and takes
     kneg 2^384 off the top word; a quotient estimate from words 11-12 and
     one conditional subtraction finish. Returns (canonical value, the value

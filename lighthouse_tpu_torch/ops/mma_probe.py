@@ -9,7 +9,8 @@ as a batched `dot_general`. That lowering choice has no CUDA counterpart: a
 hand-written kernel states its own loop nest, so the port's two forms are
 the two operand types. The CUDA source is
 `lighthouse_tpu_torch/csrc/mma_probe.cu` (`mma.sync` m16n8k32 int8 and
-m16n8k16 bf16); the plain version sums int32 products, exact for both forms
+m16n8k16 bf16, four blocks an s, X[s] transposed in registers on its way
+into shared memory); the plain version sums int32 products, exact for both forms
 at the probe's values (< 2^7, sums < 2^19).
 
     python -m lighthouse_tpu_torch.ops.mma_probe
@@ -74,7 +75,11 @@ def contract_plain(M, X):
 def contract(M, X, form: str, require_kernel: bool = False):
     """out (S, K, B) int32 from M (K, L) and X (S, L, B) of the form's
     operand type. CUDA tensors launch the probe kernel, CPU tensors run
-    `contract_plain`."""
+    `contract_plain`. The kernel takes K % 64 (four warps of 16-row
+    bands), B % 32 (four blocks an s, 8-column tiles) and L at most 64 (a
+    warp holds its A fragments for the whole L in registers): the probe's
+    one shape, 64 / 128 / 32, where an earlier design that staged
+    everything in shared memory took K % 16, B % 8 and L up to 336."""
     if form not in FORMS:
         raise ValueError(f"mma_probe: unknown form {form!r}, expected one of {tuple(FORMS)}")
     dtype, entry, counter, depth = FORMS[form]
@@ -82,8 +87,9 @@ def contract(M, X, form: str, require_kernel: bool = False):
         return contract_plain(M, X)
     s, l, b = X.shape
     k = M.shape[0]
-    if k % 16 or b % 8 or l % depth:
-        raise ValueError(f"mma_probe: K {k}, B {b}, L {l} must be multiples of 16, 8, {depth}")
+    if k % 64 or b % 32 or l % depth or l > 64:
+        raise ValueError(f"mma_probe: K {k}, B {b}, L {l} must be multiples of 64, 32, {depth}"
+                         " and L at most 64")
     cuda_build.check(M, "M", (k, l), X.device, dtype)
     cuda_build.check(X, "X", (s, l, b), X.device, dtype)
     out = torch.empty((s, k, b), dtype=torch.int32, device=X.device)
@@ -114,17 +120,23 @@ def bound(form: str):
 
 
 def probe(form: str, device="cuda") -> dict:
-    """One form on the card: exactness, kernel and library times, bound."""
+    """One form on the card: exactness, kernel and library times (both by
+    `cuda_build.time_ms`, device work alone; `call_ms` beside them, which
+    counts the host's wrapper work too), bound."""
     M_np, X_np = probe_inputs()
     M, X = operands(M_np, X_np, form, device)
     out = contract(M, X, form, require_kernel=True)
     exact = bool(np.array_equal(out.cpu().numpy().astype(np.int64), reference(M_np, X_np)))
     bound_ms, bound_by = bound(form)
+    kernel = lambda: contract(M, X, form, require_kernel=True)  # noqa: E731
+    library = library_call(M, X, form)
     return {
         "form": form,
         "exact": exact,
-        "ms": cuda_build.time_ms(lambda: contract(M, X, form, require_kernel=True), reps=20),
-        "library_ms": cuda_build.time_ms(library_call(M, X, form), reps=20),
+        "ms": cuda_build.time_ms(kernel, reps=5),
+        "library_ms": cuda_build.time_ms(library, reps=5),
+        "call_ms": cuda_build.call_ms(kernel, reps=20),
+        "library_call_ms": cuda_build.call_ms(library, reps=20),
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "shapes": {"S": S, "L": L, "K": K, "B": B},

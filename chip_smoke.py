@@ -9,8 +9,9 @@ non-zero without its result line:
  1. the card's name and power limit (nvidia-smi, printed as is);
  2. build every CUDA kernel from lighthouse_tpu_torch/csrc (one nvcc per
     source, in parallel), with what ptxas reports per kernel (K1's window
-    body on its own line: registers, stack frame, spills) and the dynamic
-    shared memory of the lane-group kernels K2 and K3;
+    body and the helpers on lines of their own: registers, stack frame,
+    spills, shared memory) and the dynamic shared memory of the lane-group
+    kernels K2 and K3;
  2b. the register-resident Fp product of K1's window body, K2 and K3 alone
     (ops/fp_product.py): one thread's dependent chain (latency) and every
     SM full of chains (product rate), both exact against Python integers;
@@ -21,17 +22,25 @@ non-zero without its result line:
     batch of 1,024 sets with distinct messages and 1-4 untagged keys;
     the signature subgroup policy runs once per signature (memoized);
  4. every kernel against its plain PyTorch version, on the card, on the
-    inputs the main path gives it, exact equality of canonical words;
+    inputs the main path gives it (the signatures' and the point path's
+    keys' Jacobian words through the Jacobian entry of the to-affine
+    kernel first), exact equality of canonical words;
     each kernel's device time (cuda_build.time_ms: calls queued behind a
     device-side sleep, so the host's wrapper work is not counted), the
     plain version's time and the bound (K1's window body: the products of
     the rows its lanes run, ops/ladder_rows.py `lane_products`); then K1's window body on
     an edge batch of 256 lanes a group (identity points, zero digits,
-    every digit +8 or -8, the top window's carry, mixed signs);
+    every digit +8 or -8, the top window's carry, mixed signs); and the
+    helpers on an edge batch (Jacobian Z != 1, Z = 1, identity and padding
+    lanes; to_affine on Z = 1, identity and general lanes; the fold on
+    P + P, P + (-P) and identity lanes, in one launch and in two);
  5. end to end through bls.api.verify_signature_sets(device="cuda"): the
     slot (grouped, indexed) and the flat batch verify True, a forged
     signature False, 4 sets cross-checked with the ref backend; launch
-    counts are read around one run of each;
+    counts are read around one run of each, with the host/device split
+    (median of the timed runs); the slot once more with its signatures
+    normalised to Z = 1 outside the timed region, as decompressed gossip
+    carries them, and the decompression of 512 signatures timed alone;
  6. K1's chain and 2-bit window bodies against their plain versions on
     the slot's ladder inputs, and the flat batch end to end with
     ladder="chain" and ladder="w2" (valid True, forged False);
@@ -71,9 +80,12 @@ INT_OPS_PER_S = 132 * 64 * 1.98e9
 # one 12-word CIOS product: 2 x 144 32x32->64 multiply-adds, lo and hi halves
 IMAD_PER_FP_PRODUCT = 2 * 144 * 2
 
-# the kernels of verify_signature_sets with the default window ladder
+# the kernels of verify_signature_sets with the default window ladder; the
+# flat batch's untagged keys also take the G1 Jacobian entry
 BATCH_KERNELS = ("ladder_g1", "ladder_g2", "miller", "fold_final_exp",
-                 "lane_sum_g1", "lane_sum_g2", "to_affine_g1", "to_affine_g2")
+                 "lane_sum_g1", "lane_sum_g2", "to_affine_g1", "to_affine_g2",
+                 "jacobian_to_affine_g2")
+POINT_PATH_KERNELS = ("jacobian_to_affine_g1",)
 
 N_VALIDATORS = 32_768
 N_COMMITTEES = 64
@@ -102,6 +114,7 @@ def main() -> int:
     from lighthouse_tpu_torch.ops import final_exp, fp_product, lanes, ladder, ladder_rows, miller
     from lighthouse_tpu_torch.ops import mma_probe
     from lighthouse_tpu_torch.ops import window_ladder
+    from lighthouse_tpu_torch.crypto.ref_curve import G1 as RG1
     from lighthouse_tpu_torch.crypto.ref_curve import G2 as RG2
 
     os.makedirs(OUT, exist_ok=True)
@@ -137,6 +150,17 @@ def main() -> int:
     }
     emit("k1_ptxas", kernels=k1_ptxas)
     assert len(k1_ptxas) == 2, "K1's window body: expected a G1 and a G2 kernel"
+    # the helpers: registers, stack frame, spills, static and dynamic shared
+    # memory (the fold's file is dynamic, curve_kernels.fold_shared_bytes)
+    helpers_ptxas = {
+        name: dict(rec, **ptxas["curve_helpers"]["functions"].get(name, {}),
+                   dynamic_shared_bytes=(curve_kernels.fold_shared_bytes(2 if "ILi2" in name else 1)
+                                         if "fold_kernel" in name else 0))
+        for name, rec in ptxas["curve_helpers"]["kernels"].items()
+    }
+    emit("helpers_ptxas", kernels=helpers_ptxas,
+         stack_frames=sorted(n for n, r in helpers_ptxas.items() if r["stack_bytes"]))
+    assert len(helpers_ptxas) == 6, "helpers: expected 2 fold and 4 affine kernels"
 
     # ---------------------------------------- 2b. the Fp product alone
     prod = fp_product.measure(dev)
@@ -177,9 +201,9 @@ def main() -> int:
         km = bv._mask(m.key_mask, dev)
         sm = bv._mask(m.set_mask, dev)
         mags, negs = bv._digits(bits, dev)
-        pk = bv._from_affine(bv._lanes(pk_words[0], dev), bv._lanes(pk_words[1], dev), km)
-        sig = bv._from_affine(bv._lanes(m.sigs[0], dev), bv._lanes(m.sigs[1], dev), sm)
-        return m, km, sm, mags, negs, pk, sig, bits
+        pk = bv._from_affine(*bv._affine(pk_words, dev), km)
+        sig = bv._from_affine(*bv._affine(m.sigs, dev), sm)
+        return m, km, sm, mags, negs, pk, sig, bits, pk_words
 
     records = {}
 
@@ -225,11 +249,21 @@ def main() -> int:
 
     ladder_inputs = {}
     for label, sets, seed in (("grouped", slot, 3), ("flat", flat, 4)):
-        m, km, sm, mags, negs, pk, sig, bits = stage_inputs(sets, seed)
+        m, km, sm, mags, negs, pk, sig, bits, pk_words = stage_inputs(sets, seed)
         S = sm.numel()
         K = m.k_bucket
         emit("shapes", batch=label, lanes=S, keys=K, windows=int(mags.shape[0]))
         recs = records.setdefault(label, {})
+        # the host's Jacobian words into affine Montgomery words: signatures,
+        # and the keys of the point path
+        jac = {2: tuple(bv._lanes(c, dev) for c in m.sigs)}
+        if m.table is None:
+            jac[1] = tuple(bv._lanes(c, dev) for c in pk_words)
+        for w, pt in sorted(jac.items()):
+            recs[f"jacobian_to_affine_g{w}"] = hold(
+                f"jacobian_to_affine_g{w}", lambda: curve_kernels.jacobian_to_affine(pt),
+                lambda: curve_kernels.jacobian_to_affine_plain(pt), nb(pt),
+                products=curve_kernels.affine_products(w, True, pt[0].shape[-1]))
         if K > 1:
             recs["lane_sum_g1_keys" if m.grouped else "lane_sum_g1"] = hold(
                 "lane_sum_g1", lambda: curve_kernels.lane_sum(pk, K),
@@ -254,7 +288,8 @@ def main() -> int:
             pk_r = curve_kernels.lane_sum(pk_r, Sg)
         recs["to_affine_g1"] = hold(
             "to_affine_g1", lambda: curve_kernels.to_affine(pk_r),
-            lambda: curve_kernels.to_affine_plain(pk_r), nb(pk_r))
+            lambda: curve_kernels.to_affine_plain(pk_r), nb(pk_r),
+            products=curve_kernels.affine_products(1, False, pk_r[0].shape[-1]))
         pk_aff = curve_kernels.to_affine(pk_r)
         recs["ladder_g2"] = hold(
             "ladder_g2", lambda: ladder.ladder(sig, mags, negs),
@@ -267,7 +302,8 @@ def main() -> int:
         sig_acc = curve_kernels.lane_sum(sig_r, S)
         recs["to_affine_g2"] = hold(
             "to_affine_g2", lambda: curve_kernels.to_affine(sig_acc),
-            lambda: curve_kernels.to_affine_plain(sig_acc), nb(sig_acc))
+            lambda: curve_kernels.to_affine_plain(sig_acc), nb(sig_acc),
+            products=curve_kernels.affine_products(2, False, sig_acc[0].shape[-1]))
         sig_aff = curve_kernels.to_affine(sig_acc)
         pair_set_mask = bv._mask(m.group_mask, dev) if m.grouped else sm
         g1, g2, pmask = bv._assemble_pairs(
@@ -321,20 +357,76 @@ def main() -> int:
     records["edge"] = edge
     emit("k1_edge", windows=W, top_window_digits=sorted(set(em[-1].tolist())), **edge)
 
+    # the helpers on an edge batch, each against its plain version, exactly:
+    # the Jacobian entry on Z != 1 (chained additions), Z = 1, the identity
+    # and padding (Z = 0), 300 lanes (a part-filled second block); to_affine
+    # on Z = 1, identity and general lanes; the fold on P + P, P + (-P) and
+    # identity lanes in its first level, one launch (seg 128) and two (512)
+    helper_edge = {}
+
+    def exact(name, out_k, out_p, **info):
+        err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                  for a, b in zip(_flatten(out_k), _flatten(out_p)))
+        helper_edge[name] = dict(info, max_abs_err=err, held=err == 0)
+        assert err == 0, f"{name}: the edge batch differs from the plain version"
+
+    for w, G, pts in ((1, RG1, [p.point for p in pubkeys[1:121]]),
+                      (2, RG2, [s.signature.point for s in slot[1:121]])):
+        edge_pts = pts + [G.from_affine(G.to_affine(p)) for p in pts] + [G.infinity] * 8 + [None] * 52
+        jl = tuple(bv._lanes(c, dev) for c in gpu_backend._pack_jacobian(edge_pts, w))
+        out_k = curve_kernels.jacobian_to_affine(jl)
+        exact(f"jacobian_to_affine_g{w}", out_k, curve_kernels.jacobian_to_affine_plain(jl),
+              lanes=len(edge_pts), z_one=120, identity=8, padding=52,
+              flagged=int(out_k[2].sum()))
+        assert int(out_k[2].sum()) == 60, f"G{w}: the identity and padding lanes are not flagged"
+        src = ladder_inputs["grouped"][w]  # Z = 1 lanes and the identity (padding)
+        at_inf = (src[2] == 0).all(dim=1).all(dim=0)
+        live, inf_l = (~at_inf).nonzero().flatten(), at_inf.nonzero().flatten()
+        sel = tuple(c[..., torch.cat([live[:150], inf_l[:150]])].contiguous() for c in src)
+        general = curve_kernels.lane_sum(tuple(c[..., live[:600]].contiguous() for c in src), 2)
+        pt = tuple(torch.cat([a, b], dim=-1).contiguous() for a, b in zip(sel, general))
+        exact(f"to_affine_g{w}", curve_kernels.to_affine(pt), curve_kernels.to_affine_plain(pt),
+              lanes=600, z_one=150, identity=150)
+        A = tuple(c[..., live[:64]] for c in src)
+        A2 = tuple(c[..., live[64:128]] for c in src)
+        I = tuple(c[..., inf_l[:64]] for c in src)
+        dup = tuple(torch.cat([a, a], dim=-1) for a in A)
+        neg = tuple(fd.bundle_to_words(c) for c in
+                    curve.group(w).neg(tuple(fd.words_to_bundle(c) for c in dup)))
+        pt = tuple(torch.cat(parts, dim=-1).contiguous() for parts in
+                   zip(dup, A2, I, neg, tuple(c[..., :128] for c in general)))
+        for seg in (128, 512):
+            exact(f"lane_sum_g{w}_seg{seg}", curve_kernels.lane_sum(pt, seg),
+                  curve_kernels.lane_sum_plain(pt, seg), lanes=512, seg=seg,
+                  launches=len(curve_kernels.fold_plan(seg)))
+    records["helper_edge"] = helper_edge
+    emit("helpers_edge", **helper_edge)
+
     # --------------------------------------------------- 5. end to end
-    def e2e(label, sets, seed):
+    def e2e(label, sets, seed, probes=True, kernels=BATCH_KERNELS):
         cuda_build.reset_launches()
         t0 = time.perf_counter()
         ok = api.verify_signature_sets(sets, seed=seed, device="cuda")
         first_s = time.perf_counter() - t0
         launches = dict(cuda_build.LAUNCHES)
         assert ok is True, f"{label}: valid batch rejected"
-        walls = []
+        walls, host_stats = [], []
         for r in range(REPS):
             t0 = time.perf_counter()
             assert api.verify_signature_sets(sets, seed=seed + 1 + r, device="cuda")
             walls.append(time.perf_counter() - t0)
-        stats = dict(gpu_backend.LAST_HOST_STATS)
+            host_stats.append(dict(gpu_backend.LAST_HOST_STATS))
+        stats = host_stats[-1]
+        split = {k: statistics.median(h[k] for h in host_stats)
+                 for k in ("points_ms", "pack_ms", "host_ms", "device_ms")}
+        missing = [k for k in kernels if launches[k] == 0]
+        assert not missing, f"{label}: the path launched no {missing}"
+        p50 = statistics.median(walls)
+        if not probes:
+            emit("end_to_end", batch=label, sets=len(sets), verdict=ok, first_call_s=first_s,
+                 p50_s=p50, sets_per_s=len(sets) / p50, walls_s=walls, host_stats=stats,
+                 host_split_p50=split, launches=launches)
+            return launches
         forged = T.forge(sets, len(sets) // 2)
         assert forged[len(sets) // 2].signature.in_subgroup()
         bad = api.verify_signature_sets(forged, seed=seed, device="cuda")
@@ -343,17 +435,36 @@ def main() -> int:
         ref_bad = api.verify_signature_sets(forged[len(sets) // 2 : len(sets) // 2 + 4], backend="ref")
         gpu_small = api.verify_signature_sets(sets[:4], seed=seed, device="cuda")
         assert ref_ok and gpu_small and not ref_bad, f"{label}: ref cross-check failed"
-        p50 = statistics.median(walls)
         emit("end_to_end", batch=label, sets=len(sets), verdict=ok, forged_verdict=bad,
              ref_cross_check=True, first_call_s=first_s, p50_s=p50,
              sets_per_s=len(sets) / p50, walls_s=walls, host_stats=stats,
-             launches=launches)
-        missing = [k for k in BATCH_KERNELS if launches[k] == 0]
-        assert not missing, f"{label}: the path launched no {missing}"
+             host_split_p50=split, launches=launches)
         return launches
 
     slot_launches = e2e("grouped", slot, 10)
-    flat_launches = e2e("flat", flat, 20)
+    flat_launches = e2e("flat", flat, 20, kernels=BATCH_KERNELS + POINT_PATH_KERNELS)
+
+    # the slot again with Z = 1 signatures, as decompressed gossip carries
+    # them (bls/point_serde.py g2_decompress): the same points normalised
+    # outside the timed region, each keeping its subgroup verdict (the
+    # memo of the signature it copies); then the decompression itself,
+    # sampled on 512 signatures
+    t0 = time.perf_counter()
+    slot_z1 = []
+    for s in slot:
+        sig = api.Signature(RG2.from_affine(RG2.to_affine(s.signature.point)))
+        sig._subgroup_ok = s.signature.in_subgroup()
+        slot_z1.append(api.SignatureSet(sig, s.pubkeys, s.message))
+    normalise_s = time.perf_counter() - t0
+    e2e("grouped_z1", slot_z1, 30, probes=False)
+    raw = [s.signature.to_bytes() for s in slot[:512]]
+    t0 = time.perf_counter()
+    decoded = [api.Signature.from_bytes(b) for b in raw]
+    decompress_s = time.perf_counter() - t0
+    for d, s in zip(decoded, slot_z1[:512]):
+        assert d.point == s.signature.point, "decompression: another point"
+    emit("decompress", signatures=len(raw), normalise_s=normalise_s,
+         slot_decompress_us_per_sig=decompress_s / len(raw) * 1e6, z_one=True)
 
     # ------------------------------ 6. K1's chain and 2-bit window forms
     group_cost = {}
@@ -423,7 +534,8 @@ def main() -> int:
         assert api.verify_signature_sets_individually(bad_slot, device="cuda") == verdicts
         walls.append(time.perf_counter() - t0)
     per_set_stats = dict(gpu_backend.LAST_HOST_STATS)
-    missing = [k for k in ("to_affine_g1", "miller", "pair_final_exp") if per_set_launches[k] == 0]
+    missing = [k for k in ("jacobian_to_affine_g2", "to_affine_g1", "miller", "pair_final_exp")
+               if per_set_launches[k] == 0]
     assert not missing, f"per-set path launched no {missing}"
     # K2 and K3 at the per-set shapes, K3 held on a 1,024-set slice
     m = gpu_backend._marshal_flat(bad_slot, pow2=False)
@@ -497,6 +609,7 @@ def main() -> int:
     # --------------------------------------------------- 9. kernels line
     csrc = "lighthouse_tpu_torch/csrc/"
     helper = "a step that is XLA on the TPU, outside any Pallas kernel"
+    host = "a step that is host Python in the JAX package (affine conversion and packing)"
     forms_note = "slot ladder inputs; launches from the flat batch with ladder={}"
     meta = {  # name -> (source, what it replaces, note)
         "ladder_g1": (csrc + "ladder.cu", "lighthouse_tpu/ops/pallas_ladder.py:101", None),
@@ -507,6 +620,10 @@ def main() -> int:
         "lane_sum_g2": (csrc + "curve_helpers.cu", "lighthouse_tpu/ops/tcurve.py:201", helper),
         "to_affine_g1": (csrc + "curve_helpers.cu", "lighthouse_tpu/ops/curve.py:630", helper),
         "to_affine_g2": (csrc + "curve_helpers.cu", "lighthouse_tpu/ops/curve.py:630", helper),
+        "jacobian_to_affine_g1": (csrc + "curve_helpers.cu", "lighthouse_tpu/bls/tpu_backend.py:310",
+                                  host + "; the flat batch's untagged keys at 4,096 lanes"),
+        "jacobian_to_affine_g2": (csrc + "curve_helpers.cu", "lighthouse_tpu/bls/tpu_backend.py:282",
+                                  host),
         "ladder_g1_chain": (csrc + "ladder.cu", "lighthouse_tpu/ops/pallas_ladder.py:59",
                             forms_note.format("chain")),
         "ladder_g2_chain": (csrc + "ladder.cu", "lighthouse_tpu/ops/pallas_ladder.py:59",
@@ -523,7 +640,9 @@ def main() -> int:
     kernels = []
     for name, (source, replaces, note) in meta.items():
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
-        if name in records["grouped"] and not name.endswith(("_chain", "_w2")):
+        if name == "jacobian_to_affine_g1":  # the point path: the flat batch alone
+            rec, launches = records["flat"][name], flat_launches[name]
+        elif name in records["grouped"] and not name.endswith(("_chain", "_w2")):
             rec, launches = records["grouped"][name], slot_launches[name]
             entry["flat"] = {k: records["flat"][name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")} | {
                 "launches": flat_launches[name]}

@@ -8,9 +8,13 @@ The port of `lighthouse_tpu/bls/tpu_backend.py`'s batch path. The host:
     least halves the pair count (G * 2 <= S: a slot's attestations, ~64
     committees over >= 30k sets), else lays them out flat;
   * pads sets, keys and groups to power-of-two buckets with masked lanes;
-  * converts signatures to affine with one simultaneous inversion, hashes
-    each distinct message once (memoized), and packs points as canonical
-    Montgomery kernel words;
+  * hashes each distinct message once (memoized, affine Montgomery kernel
+    words), and ships signatures -- and the pubkeys of a batch whose keys
+    are not all in one table -- as their Jacobian coordinates in plain
+    canonical words (`fd.ints_to_words`, no field arithmetic): the device
+    batch converts them to affine Montgomery words with one kernel launch
+    (`curve_kernels.jacobian_to_affine`); a padding lane has Z = 0, which
+    maps to (0, 0);
   * ships table row indices instead of points when every pubkey is
     registered in one `DevicePubkeyTable`;
   * samples 64-bit RLC scalars, and dispatches one device batch
@@ -34,7 +38,6 @@ import torch
 
 from lighthouse_tpu_torch.bls.api import signature_ok
 from lighthouse_tpu_torch.bls.hash_to_curve import hash_to_g2
-from lighthouse_tpu_torch.crypto.ref_curve import G1 as G1_GROUP
 from lighthouse_tpu_torch.crypto.ref_curve import G2 as G2_GROUP
 from lighthouse_tpu_torch.ops import batch_verify, field as fd
 
@@ -58,62 +61,60 @@ _MSG_CACHE: dict = {}
 _MSG_CACHE_MAX = 16_384
 
 
-def _msg_affine(message: bytes):
-    """Memoized hash_to_g2 -> affine ints: a slot's attestations share a
-    message per committee."""
+def _msg_entry(message: bytes):
+    """Memoized hash_to_g2 -> (affine ints, (2, 12) x and y Montgomery
+    words): a slot's attestations share a message per committee, and the
+    per-set layout repeats it on every set's lane."""
     message = bytes(message)
     hit = _MSG_CACHE.get(message)
     if hit is None:
-        hit = G2_GROUP.to_affine(hash_to_g2(message))
+        aff = G2_GROUP.to_affine(hash_to_g2(message))
+        x, y = _pack_g2([aff])
+        hit = (aff, x[0], y[0])
         if len(_MSG_CACHE) >= _MSG_CACHE_MAX:
             _MSG_CACHE.clear()
         _MSG_CACHE[message] = hit
     return hit
 
 
-# ----------------------------------------------- batched affine conversion
-
-_F2 = G2_GROUP.F
-
-
-def batch_to_affine_g2(points):
-    """Jacobian G2 points -> affine with ONE Fp2 inversion (Montgomery's
-    simultaneous inversion); infinity -> None."""
-    keep = [i for i, pt in enumerate(points) if not G2_GROUP.is_infinity(pt)]
-    out = [None] * len(points)
-    if not keep:
-        return out
-    zs = [points[i][2] for i in keep]
-    prefix = [zs[0]]
-    for z in zs[1:]:
-        prefix.append(_F2.mul(prefix[-1], z))
-    acc = _F2.inv(prefix[-1])
-    invs = [None] * len(zs)
-    for j in range(len(zs) - 1, 0, -1):
-        invs[j] = _F2.mul(acc, prefix[j - 1])
-        acc = _F2.mul(acc, zs[j])
-    invs[0] = acc
-    for j, i in enumerate(keep):
-        x, y, _ = points[i]
-        zi2 = _F2.sqr(invs[j])
-        out[i] = (_F2.mul(x, zi2), _F2.mul(y, _F2.mul(zi2, invs[j])))
-    return out
+def _msg_affine(message: bytes):
+    return _msg_entry(message)[0]
 
 
-def _pack_g1(affs) -> tuple:
-    """Affine G1 (None = masked) -> (N, 1, 12) x and y words."""
-    xs = fd.mont_words([a[0] if a else 0 for a in affs])[:, None, :]
-    ys = fd.mont_words([a[1] if a else 0 for a in affs])[:, None, :]
-    return xs, ys
+def _pack_msgs(entries, n_pad: int) -> tuple:
+    """Message entries (`_msg_entry`) and n_pad padding lanes -> (N, 2, 12)
+    x and y Montgomery words; padding is zero."""
+    zero = np.zeros((2, fd.NW), np.int32)
+    return tuple(np.stack([e[j] for e in entries] + [zero] * n_pad) for j in (1, 2))
+
+
+# --------------------------------------------------------------- packing
 
 
 def _pack_g2(affs) -> tuple:
-    """Affine G2 (None = masked) -> (N, 2, 12) x and y words."""
+    """Affine G2 (None = masked) -> (N, 2, 12) x and y Montgomery words."""
     zero = ((0, 0), (0, 0))
     pts = [a or zero for a in affs]
     xs = fd.mont_words([c for a in pts for c in a[0]]).reshape(-1, 2, fd.NW)
     ys = fd.mont_words([c for a in pts for c in a[1]]).reshape(-1, 2, fd.NW)
     return xs, ys
+
+
+def _pack_jacobian(points, w: int) -> tuple:
+    """Jacobian points, crypto/ref_curve's coordinates (None = padding) ->
+    (N, w, 12) plain canonical words of X, Y and Z; padding is all zero, so
+    its Z = 0."""
+    zero = (0,) * (3 * w)
+    flat = []
+    for pt in points:
+        if pt is None:
+            flat += zero
+        elif w == 1:
+            flat += pt
+        else:
+            flat += (c for coord in pt for c in coord)
+    words = fd.ints_to_words(flat).reshape(-1, 3, w, fd.NW)
+    return tuple(words[:, i] for i in range(3))
 
 
 def _rlc_scalars(n: int, seed) -> np.ndarray:
@@ -197,12 +198,11 @@ def _pack_keys(m, sets, order):
     else:
         flat = []
         for i in order:
-            row = [] if i is None else [G1_GROUP.to_affine(p.point) for p in sets[i].pubkeys]
+            row = [] if i is None else [p.point for p in sets[i].pubkeys]
             flat += row + [None] * (m.k_bucket - len(row))
-        xs, ys = _pack_g1(flat)
         m.indices = None
-        m.pubkeys = (xs.reshape(len(order), m.k_bucket, 1, fd.NW),
-                     ys.reshape(len(order), m.k_bucket, 1, fd.NW))
+        m.pubkeys = tuple(c.reshape(len(order), m.k_bucket, 1, fd.NW)
+                          for c in _pack_jacobian(flat, 1))
 
 
 def _marshal(sets) -> _Marshalled:
@@ -221,13 +221,12 @@ def _marshal_grouped(sets, groups) -> _Marshalled:
     m.grouped, m.n_groups = True, G
     m.s_bucket = g_b * sg_b
     m.k_bucket = _bucket(max(len(s.pubkeys) for s in sets), 1)
-    group_msgs = [_msg_affine(sets[ix[0]].message) for _, ix in groups] + [None] * (g_b - G)
+    group_msgs = [_msg_entry(sets[ix[0]].message) for _, ix in groups]
     order: list = []
     for _, ix in groups:
         order += list(ix) + [None] * (sg_b - len(ix))
     order += [None] * ((g_b - G) * sg_b)
-    sig_aff = batch_to_affine_g2([s.signature.point for s in sets])
-    sigs = [None if i is None else sig_aff[i] for i in order]
+    sigs = [None if i is None else sets[i].signature.point for i in order]
     t1 = time.perf_counter()
     m.group_mask = np.array([True] * G + [False] * (g_b - G), dtype=bool)
     m.set_mask = np.array([i is not None for i in order], dtype=bool).reshape(g_b, sg_b)
@@ -237,8 +236,8 @@ def _marshal_grouped(sets, groups) -> _Marshalled:
         m.indices = m.indices.reshape(g_b, sg_b, m.k_bucket)
     else:
         m.pubkeys = tuple(c.reshape(g_b, sg_b, m.k_bucket, 1, fd.NW) for c in m.pubkeys)
-    m.msgs = _pack_g2(group_msgs)
-    m.sigs = tuple(c.reshape(g_b, sg_b, 2, fd.NW) for c in _pack_g2(sigs))
+    m.msgs = _pack_msgs(group_msgs, g_b - G)
+    m.sigs = tuple(c.reshape(g_b, sg_b, 2, fd.NW) for c in _pack_jacobian(sigs, 2))
     t2 = time.perf_counter()
     m.timings = {"points_ms": (t1 - t0) * 1e3, "pack_ms": (t2 - t1) * 1e3}
     return m
@@ -254,14 +253,14 @@ def _marshal_flat(sets, pow2: bool = True) -> _Marshalled:
     m.s_bucket = _bucket(n_sets, 4) if pow2 else n_sets
     m.k_bucket = _bucket(max(len(s.pubkeys) for s in sets), 1)
     pad = [None] * (m.s_bucket - n_sets)
-    msgs = [_msg_affine(s.message) for s in sets] + pad
-    sigs = batch_to_affine_g2([s.signature.point for s in sets]) + pad
+    msgs = [_msg_entry(s.message) for s in sets]
+    sigs = [s.signature.point for s in sets] + pad
     t1 = time.perf_counter()
     order = list(range(n_sets)) + pad
     m.set_mask = np.array([i is not None for i in order], dtype=bool)
     _pack_keys(m, sets, order)
-    m.msgs = _pack_g2(msgs)
-    m.sigs = _pack_g2(sigs)
+    m.msgs = _pack_msgs(msgs, len(pad))
+    m.sigs = _pack_jacobian(sigs, 2)
     t2 = time.perf_counter()
     m.timings = {"points_ms": (t1 - t0) * 1e3, "pack_ms": (t2 - t1) * 1e3}
     return m
@@ -271,8 +270,8 @@ def _marshal_flat(sets, pow2: bool = True) -> _Marshalled:
 
 
 def _pubkeys(m, device):
-    """The batch's key words: gathered from its table on `device`, or the
-    packed points."""
+    """The batch's key words: affine (x, y) gathered from its table on
+    `device`, or the Jacobian (X, Y, Z) plain words of the point path."""
     if m.table is None:
         return m.pubkeys
     if m.table.device != device:

@@ -174,33 +174,12 @@ __device__ __forceinline__ void store_slot(u32* file, int s, const u32 x[NW]) {
     p[q] = make_uint4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
 }
 
-// x = sum_t c_t slot_t mod p over n terms (bits 0-11 the slot reference,
-// bits 12-31 the signed coefficient): canonical, or only < 2p where it is a
-// product's operand (fp_mul's result stays below 2p before its subtraction
-// for operands below 2p, since 4p < 2^384)
-__device__ __forceinline__ void lin_sum(u32 x[NW], const u32* terms, int n, const u32* file,
-                                        u32 bases, bool canonical) {
-  const u32 first = terms[0];
-  if (n == 1 && (first >> 12) == 1u) {  // one slot as it is
-    load_slot(x, file, slot_of(first, bases));
-    return;
-  }
-  // acc_j = sum_t k_t (word j of x_t, complemented where c_t = -k_t < 0)
-  u64 acc[NW];
-#pragma unroll
-  for (int j = 0; j < NW; j++) acc[j] = 0ull;
-  u32 kneg = 0u;
-  for (int t = 0; t < n; t++) {
-    const u32 term = terms[t];
-    const int c = (int)term >> 12;
-    const u32 m = c < 0 ? 0xffffffffu : 0u;
-    const u32 k = c < 0 ? (u32)(-c) : (u32)c;
-    kneg += k & m;
-    u32 v[NW];
-    load_slot(v, file, slot_of(term, bases));
-#pragma unroll
-    for (int j = 0; j < NW; j++) acc[j] += (u64)(v[j] ^ m) * k;
-  }
+// x = S mod p from acc_j = sum_t k_t (word j of x_t, complemented where
+// c_t = -k_t < 0) and kneg = the sum of those k_t, for S = sum_t c_t x_t
+// over canonical x_t with L1 norm sum_t |c_t| <= 256: canonical, or only
+// below 2p where it is a product's operand
+__device__ __forceinline__ void lin_reduce(u32 x[NW], const u64 acc[NW], u32 kneg,
+                                           bool canonical) {
   // sum_j acc_j 2^(32 j) = S + kneg (2^384 - 1) for S = sum_t c_t x_t, so
   // S + kneg p = that - kneg 2^384 + kneg + kneg p, in [0, L1 p] for the
   // coefficients' L1 norm L1 (lanes' rows: at most 64; K1's: at most 256;
@@ -234,6 +213,189 @@ __device__ __forceinline__ void lin_sum(u32 x[NW], const u32* terms, int n, cons
 #pragma unroll
     for (int j = 0; j < NW; j++) x[j] = r[j];
   }
+}
+
+// x = sum_t c_t slot_t mod p over n terms (bits 0-11 the slot reference,
+// bits 12-31 the signed coefficient): canonical, or only < 2p where it is a
+// product's operand (fp_mul's result stays below 2p before its subtraction
+// for operands below 2p, since 4p < 2^384)
+__device__ __forceinline__ void lin_sum(u32 x[NW], const u32* terms, int n, const u32* file,
+                                        u32 bases, bool canonical) {
+  const u32 first = terms[0];
+  if (n == 1 && (first >> 12) == 1u) {  // one slot as it is
+    load_slot(x, file, slot_of(first, bases));
+    return;
+  }
+  // acc_j = sum_t k_t (word j of x_t, complemented where c_t = -k_t < 0)
+  u64 acc[NW];
+#pragma unroll
+  for (int j = 0; j < NW; j++) acc[j] = 0ull;
+  u32 kneg = 0u;
+  for (int t = 0; t < n; t++) {
+    const u32 term = terms[t];
+    const int c = (int)term >> 12;
+    const u32 m = c < 0 ? 0xffffffffu : 0u;
+    const u32 k = c < 0 ? (u32)(-c) : (u32)c;
+    kneg += k & m;
+    u32 v[NW];
+    load_slot(v, file, slot_of(term, bases));
+#pragma unroll
+    for (int j = 0; j < NW; j++) acc[j] += (u64)(v[j] ^ m) * k;
+  }
+  lin_reduce(x, acc, kneg, canonical);
+}
+// ------------------------------------------------------ the inverse
+//
+// `fp_inv`: a binary extended Euclid (Kaliski's almost Montgomery
+// inverse, several bits a step) on the 12 words in registers, then a
+// division by the 2^k it leaves. Its steps are subtractions, additions and
+// shifts; a random input takes ~270 steps where a Fermat chain takes ~380
+// squarings and ~100 products. Its running time depends on the input, so
+// it is for public values only (curve points of signatures and keys).
+// ops/fp_inverse.py `inv_words` models it word for word.
+
+// R^2 mod p and R^3 mod p
+static __device__ const u32 R2_W[NW] = {
+    0x1c341746u, 0xf4df1f34u, 0x09d104f1u, 0x0a76e6a6u, 0x4c95b6d5u, 0x8de5476cu,
+    0x939d83c0u, 0x67eb88a9u, 0xb519952du, 0x9a793e85u, 0x92cae3aau, 0x11988fe5u};
+static __device__ const u32 R3_W[NW] = {
+    0xd94ca1e0u, 0xed48ac6bu, 0x03a7adf8u, 0x315f831eu, 0x615e29ddu, 0x9a53352au,
+    0x921e1761u, 0x34c04e5eu, 0x65724728u, 0x2512d435u, 0x91755d4du, 0x0aa63460u};
+
+__device__ __forceinline__ bool is_zero_words(const u32 a[NW]) {
+  u32 o = 0u;
+#pragma unroll
+  for (int k = 0; k < NW; k++) o |= a[k];
+  return o == 0u;
+}
+
+// trailing zero bits of a != 0
+__device__ __forceinline__ int ctz_words(const u32 a[NW]) {
+  int t = 0;
+#pragma unroll
+  for (int k = NW - 1; k >= 0; k--)
+    if (a[k]) t = 32 * k + __ffs(a[k]) - 1;
+  return t;
+}
+
+// a >>= t, a <<= t (bits shifted out are lost), any t >= 0
+__device__ __forceinline__ void shr_words(u32 a[NW], int t) {
+  for (; t >= 32; t -= 32) {
+#pragma unroll
+    for (int k = 0; k < NW - 1; k++) a[k] = a[k + 1];
+    a[NW - 1] = 0u;
+  }
+#pragma unroll
+  for (int k = 0; k < NW - 1; k++) a[k] = __funnelshift_r(a[k], a[k + 1], t);
+  a[NW - 1] >>= t;
+}
+
+__device__ __forceinline__ void shl_words(u32 a[NW], int t) {
+  for (; t >= 32; t -= 32) {
+#pragma unroll
+    for (int k = NW - 1; k > 0; k--) a[k] = a[k - 1];
+    a[0] = 0u;
+  }
+#pragma unroll
+  for (int k = NW - 1; k > 0; k--) a[k] = __funnelshift_l(a[k - 1], a[k], t);
+  a[0] <<= t;
+}
+
+// x <- x 2^-t mod p for x < p, 1 <= t <= 32: x + m p with m = -x p^-1 mod
+// 2^t is divisible by 2^t and below 2^t p
+__device__ __forceinline__ void div_pow2(u32 x[NW], int t) {
+  const u32 pw[NW] = {LH_P_WORDS};
+  const u32 m = (x[0] * N0) & (t == 32 ? 0xffffffffu : (1u << t) - 1u);
+  u32 w[NW + 1];
+  u64 c = 0;
+#pragma unroll
+  for (int k = 0; k < NW; k++) {
+    c += (u64)m * pw[k] + x[k];
+    w[k] = (u32)c;
+    c >>= 32;
+  }
+  w[NW] = (u32)c;
+#pragma unroll
+  for (int k = 0; k < NW; k++) x[k] = t == 32 ? w[k + 1] : __funnelshift_r(w[k], w[k + 1], t);
+}
+
+// r = a^-1 R^2 mod p for a < p (the Montgomery form of the inverse of a
+// Montgomery value); 0 -> 0
+__device__ __forceinline__ void fp_inv(u32 out[NW], const u32 a[NW]) {
+  const u32 pw[NW] = {LH_P_WORDS};
+  if (is_zero_words(a)) {
+#pragma unroll
+    for (int k = 0; k < NW; k++) out[k] = 0u;
+    return;
+  }
+  // Kaliski: p = u s + v r throughout, u and v odd at the top of the loop
+  u32 u[NW], v[NW], r[NW], s[NW];
+#pragma unroll
+  for (int k = 0; k < NW; k++) {
+    u[k] = pw[k];
+    v[k] = a[k];
+    r[k] = 0u;
+    s[k] = 0u;
+  }
+  s[0] = 1u;
+  int total = ctz_words(v);  // r = 0 takes the shift as it is
+  shr_words(v, total);
+  while (true) {
+    u32 d[NW];
+    u64 borrow = 0;
+#pragma unroll
+    for (int k = 0; k < NW; k++) {
+      const u64 x = (u64)u[k] - v[k] - borrow;
+      d[k] = (u32)x;
+      borrow = x >> 63;
+    }
+    if (!borrow && !is_zero_words(d)) {  // u > v: u -= v, r += s
+      u64 c = 0;
+#pragma unroll
+      for (int k = 0; k < NW; k++) {
+        u[k] = d[k];
+        c += (u64)r[k] + s[k];
+        r[k] = (u32)c;
+        c >>= 32;
+      }
+      const int t = ctz_words(u);
+      shr_words(u, t);
+      shl_words(s, t);
+      total += t;
+    } else {  // v >= u: v -= u (= -d), s += r
+      u64 b = 0, c = 0;
+#pragma unroll
+      for (int k = 0; k < NW; k++) {
+        const u64 x = 0ull - d[k] - b;
+        v[k] = (u32)x;
+        b = x >> 63;
+        c += (u64)s[k] + r[k];
+        s[k] = (u32)c;
+        c >>= 32;
+      }
+      if (is_zero_words(v)) {
+        shl_words(r, 1);
+        total += 1;
+        break;
+      }
+      const int t = ctz_words(v);
+      shr_words(v, t);
+      shl_words(r, t);
+      total += t;
+    }
+  }
+  // r < 2p and -r = a^-1 2^total mod p
+  reduce_once(r, r);
+  u64 b = 0;
+#pragma unroll
+  for (int k = 0; k < NW; k++) {
+    const u64 x = (u64)pw[k] - r[k] - b;
+    r[k] = (u32)x;
+    b = x >> 63;
+  }
+  for (; total >= 32; total -= 32) div_pow2(r, 32);
+  if (total) div_pow2(r, total);
+  fp_mul(out, r, R3_W);  // a^-1 R^3 R^-1
 }
 
 }  // namespace fpr

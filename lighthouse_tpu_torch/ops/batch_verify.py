@@ -11,15 +11,21 @@ The flat layout pairs every set with its own message (S + 1 Miller loops);
 the grouped layout merges the sets that share a message (G + 1 Miller
 loops: prod_g e(sum_{i in g} r_i * agg_pk_i, H_g)). On each path:
 
-    key aggregation (lane_sum over K) -> K1 ladder on G1 -> [group fold] ->
-    to_affine ; K1 ladder on G2 -> lane fold -> to_affine ;
-    pair assembly -> K2 Miller loop -> K3 fold + final exponentiation
+    [keys to affine] -> key aggregation (lane_sum over K) -> K1 ladder on
+    G1 -> [group fold] -> to_affine ; signatures to affine -> K1 ladder on
+    G2 -> lane fold -> to_affine ; pair assembly -> K2 Miller loop -> K3
+    fold + final exponentiation
 
 Inputs are batch-leading kernel words, shaped like the JAX functions'
-bundles with 12 words in place of 33 limbs: G2 affine (..., 2, 12), G1
-affine (..., 1, 12), masks bool, RLC bits (..., 64) int LSB first. Every
-step runs where its tensors are: CUDA tensors launch the kernels, CPU
-tensors run the plain versions.
+bundles with 12 words in place of 33 limbs: G2 (..., 2, 12), G1 (..., 1,
+12), masks bool, RLC bits (..., 64) int LSB first. Messages are affine
+(x, y) Montgomery words. Signatures and pubkeys are either that, or
+Jacobian (X, Y, Z) plain canonical words as the host holds them (the
+gpu backend's signatures, and its pubkeys outside a table), which
+`curve_kernels.jacobian_to_affine` turns into the affine words of the JAX
+functions' inputs (`tpu_backend.batch_to_affine_g2` + `_pack_g2_affine`)
+before K1 or K2. Every step runs where its tensors are: CUDA tensors
+launch the kernels, CPU tensors run the plain versions.
 
 Pair masks follow `_assemble_pairs`: a set whose RLC'd aggregate key is the
 identity is masked (e(inf, H) == 1); padding sets enter as the identity and
@@ -62,6 +68,15 @@ def _lanes(c, device):
 
 def _mask(m, device):
     return torch.as_tensor(m, device=device).reshape(-1).to(torch.bool)
+
+
+def _affine(pt, device):
+    """Affine Montgomery lanes (x, y) (w, 12, N): the (x, y) words as they
+    are, or the Jacobian plain words (X, Y, Z) converted on `device`."""
+    if len(pt) == 2:
+        return tuple(_lanes(c, device) for c in pt)
+    x, y, _ = curve_kernels.jacobian_to_affine(tuple(_lanes(c, device) for c in pt))
+    return x, y
 
 
 def _from_affine(x, y, valid):
@@ -115,7 +130,7 @@ def _verdict(g1, g2, mask):
 
 def _signature_side(sigs, set_mask, digits, form, device):
     """sum_i r_i * sig_i as an affine point (x, y, is_identity)."""
-    sig = _from_affine(_lanes(sigs[0], device), _lanes(sigs[1], device), set_mask)
+    sig = _from_affine(*_affine(sigs, device), set_mask)
     sig_r = k1.ladder(sig, *digits, form=form)
     acc = curve_kernels.lane_sum(sig_r, _pow2(sig_r[0].shape[-1], "signature lanes"))
     return curve_kernels.to_affine(acc)
@@ -126,16 +141,17 @@ def _aggregate_keys(pubkeys, key_mask, device):
     projective (1, 12, S)."""
     K = np.shape(key_mask)[-1]
     km = _mask(key_mask, device)
-    pk = _from_affine(_lanes(pubkeys[0], device), _lanes(pubkeys[1], device), km)
+    pk = _from_affine(*_affine(pubkeys, device), km)
     return curve_kernels.lane_sum(pk, _pow2(K, "K"))
 
 
 def verify_signature_sets(
     msgs, sigs, pubkeys, key_mask, rand_bits, set_mask, device="cuda", ladder="window"
 ):
-    """Flat layout: msgs/sigs (S, 2, 12) x and y, pubkeys (S, K, 1, 12) x and
-    y, key_mask (S, K), rand_bits (S, 64), set_mask (S,). S and K powers of
-    two. Returns a bool tensor: True iff every real set verifies."""
+    """Flat layout: msgs (S, 2, 12) x and y, sigs (S, 2, 12) and pubkeys
+    (S, K, 1, 12) x and y, or X, Y and Z (module doc), key_mask (S, K),
+    rand_bits (S, 64), set_mask (S,). S and K powers of two. Returns a bool
+    tensor: True iff every real set verifies."""
     sm = _mask(set_mask, device)
     digits = _digits(rand_bits, device, ladder)
     agg = _aggregate_keys(pubkeys, key_mask, device)
@@ -152,8 +168,9 @@ def verify_signature_sets_grouped(
     device="cuda", ladder="window",
 ):
     """Message-grouped layout: group_msgs (G, 2, 12), sigs (G, Sg, 2, 12),
-    pubkeys (G, Sg, K, 1, 12), key_mask (G, Sg, K), rand_bits (G, Sg, 64),
-    set_mask (G, Sg), group_mask (G,); G, Sg and K powers of two."""
+    pubkeys (G, Sg, K, 1, 12) (coordinates as in `verify_signature_sets`),
+    key_mask (G, Sg, K), rand_bits (G, Sg, 64), set_mask (G, Sg),
+    group_mask (G,); G, Sg and K powers of two."""
     Sg = np.shape(key_mask)[1]
     sm = _mask(set_mask, device)
     gm = _mask(group_mask, device)
@@ -179,9 +196,10 @@ def _individual_pairs(msgs, sigs, pubkeys, key_mask, set_mask, device):
     dev = pk_x.device
     ng = [torch.as_tensor(c, device=dev).reshape(1, NW, 1).expand(1, NW, S) for c in NEG_G1_AFFINE]
     g1 = (torch.cat([pk_x, ng[0]], dim=-1), torch.cat([pk_y, ng[1]], dim=-1))
+    s_x, s_y = _affine(sigs, device)
     g2 = (
-        torch.cat([_lanes(msgs[0], device), _lanes(sigs[0], device)], dim=-1),
-        torch.cat([_lanes(msgs[1], device), _lanes(sigs[1], device)], dim=-1),
+        torch.cat([_lanes(msgs[0], device), s_x], dim=-1),
+        torch.cat([_lanes(msgs[1], device), s_y], dim=-1),
     )
     # e(inf, .) == 1 exactly; a padding set contributes 1 to both its pairs
     return g1, g2, torch.cat([sm & ~pk_inf, sm]), sm

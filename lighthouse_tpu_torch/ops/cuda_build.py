@@ -1,9 +1,9 @@
 """Build the port's CUDA kernels with nvcc and call them through ctypes.
 
-Each source under `lighthouse_tpu_torch/csrc/` (one per kernel family; the
-helpers and K1's `chain` and `w2` bodies include `bls12_381.cuh`, K1's
-window body, K2, K3 and the product probe the register arithmetic of
-`fp_reg.cuh`, K2 and K3 through `lanes.cuh`) compiles at first use into its
+Each source under `lighthouse_tpu_torch/csrc/` (one per kernel family; K1's
+`chain` and `w2` bodies include `bls12_381.cuh`, K1's window body, K2, K3,
+the helpers and the product probe the register arithmetic of `fp_reg.cuh`,
+K2 and K3 through `lanes.cuh`) compiles at first use into its
 own shared library with a plain C interface under
 `lighthouse_tpu_torch/build/`:
 
@@ -60,10 +60,12 @@ SOURCES = {
     },
     "fp_product": {"lh_fp_chain": [_P, _P, _I, _I, _P, _P]},
     "curve_helpers": {
-        "lh_lane_sum_level_g1": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
-        "lh_lane_sum_level_g2": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
+        "lh_lane_fold_g1": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+        "lh_lane_fold_g2": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
         "lh_to_affine_g1": [_P, _P, _P, _I, _P, _P, _P, _P],
         "lh_to_affine_g2": [_P, _P, _P, _I, _P, _P, _P, _P],
+        "lh_jacobian_to_affine_g1": [_P, _P, _P, _I, _P, _P, _P, _P],
+        "lh_jacobian_to_affine_g2": [_P, _P, _P, _I, _P, _P, _P, _P],
     },
     "mma_probe": {
         "lh_mma_probe_i8": [_P, _P, _I, _I, _I, _I, _P, _P],
@@ -86,6 +88,8 @@ LAUNCHES = {
     "lane_sum_g2": 0,
     "to_affine_g1": 0,
     "to_affine_g2": 0,
+    "jacobian_to_affine_g1": 0,
+    "jacobian_to_affine_g2": 0,
     "mma_probe_i8": 0,
     "mma_probe_bf16": 0,
 }
@@ -180,9 +184,11 @@ def build_all(force: bool = False) -> dict:
 
 
 def ptxas_summary(text: str) -> dict:
-    """ptxas -v output -> {kernel: {"registers", "stack_bytes"}} for the
-    entry functions, the spill bytes summed over every function, and each
-    function's own frame and spills under "functions"."""
+    """ptxas -v output -> {kernel: {"registers", "stack_bytes",
+    "shared_bytes"}} for the entry functions (static shared memory; a
+    kernel's dynamic shared memory is the launch's), the spill bytes summed
+    over every function, and each function's own frame and spills under
+    "functions"."""
     kernels, functions = {}, {}
     entry = props = None
     for line in text.splitlines():
@@ -204,8 +210,10 @@ def ptxas_summary(text: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and entry is not None:
             stack = re.search(r"(\d+) bytes cumulative stack size", line)
+            smem = re.search(r"(\d+) bytes smem", line)
             kernels[entry] = {"registers": int(m.group(1)),
-                              "stack_bytes": int(stack.group(1)) if stack else 0}
+                              "stack_bytes": int(stack.group(1)) if stack else 0,
+                              "shared_bytes": int(smem.group(1)) if smem else 0}
             entry = None
     spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
     return {

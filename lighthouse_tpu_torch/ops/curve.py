@@ -11,7 +11,8 @@ Completeness holds on the odd-order r-torsion, which is all the verify path
 feeds in.
 
 These are the plain versions behind K1 (`ops/ladder.py`) and the helper
-kernels (`lane_sum`, `to_affine`, in `ops/curve_kernels.py`).
+kernels (`lane_sum`, `to_affine`, `jacobian_to_affine`, in
+`ops/curve_kernels.py`).
 """
 
 import numpy as np
@@ -205,20 +206,36 @@ class Projective:
             seg = half
         return x
 
+    def _inv(self, Z):
+        """1 / Z per lane (Fp2: conj(Z) / (Z0^2 + Z1^2)); inv(0) == 0."""
+        if self.w == 1:
+            return fd.inv(Z)
+        sq = fd.sqr_lazy(Z)
+        ninv = fd.inv(fd.add(sq[0:1], sq[1:2]))
+        conj = fd.apply_combo(Z, np.array([[1, 0], [0, -1]], np.int32))
+        return fd.mul_lazy(conj, torch.broadcast_to(ninv, conj.shape))
+
+    @staticmethod
+    def _is_zero(Z):
+        return (fd.canon(Z) == 0).all(dim=-2).all(dim=-2)
+
     def to_affine(self, pt):
         """(x, y, is_identity) with x = X/Z, y = Y/Z; the identity maps to
         (0, 0), since inv(0) == 0."""
         X, Y, Z = pt
-        if self.w == 1:
-            zinv = fd.inv(Z)
-        else:
-            sq = fd.sqr_lazy(Z)
-            ninv = fd.inv(fd.add(sq[0:1], sq[1:2]))
-            conj = fd.apply_combo(Z, np.array([[1, 0], [0, -1]], np.int32))
-            zinv = fd.mul_lazy(conj, torch.broadcast_to(ninv, conj.shape))
+        zinv = self._inv(Z)
         x, y = self._stack_mul([X, Y], [zinv, zinv])
-        inf = (fd.canon(Z) == 0).all(dim=-2).all(dim=-2)
-        return x, y, inf
+        return x, y, self._is_zero(Z)
+
+    def jacobian_to_affine(self, pt):
+        """Jacobian (X, Y, Z) in the plain domain (not Montgomery), values
+        below p -> (x, y, is_identity) in Montgomery form with x = X/Z^2,
+        y = Y/Z^3 (crypto/ref_curve's coordinates); Z = 0 maps to (0, 0)."""
+        X, Y, Z = (fd.to_mont(c) for c in pt)
+        zinv = self._inv(Z)
+        zi2 = self._mul(zinv, zinv)
+        x, y = self._stack_mul([X, Y], [zi2, self._mul(zi2, zinv)])
+        return x, y, self._is_zero(Z)
 
 
 # b3 = 3b: G1 b = 4 -> 12; G2 b = 4 + 4u -> 12 + 12u, acting on (a0 + a1 u)

@@ -18,6 +18,8 @@ operations count the Fp products they perform, over all lanes, in
 `FP_PRODUCTS` (the operation count behind each kernel's bound).
 """
 
+from itertools import repeat
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -334,9 +336,10 @@ def bundle_to_words(x):
 
 
 def ints_to_words(values) -> np.ndarray:
-    """ints in [0, 2^384) -> (N, 12) int32 little-endian words."""
-    raw = b"".join(int(v).to_bytes(48, "little") for v in values)
-    return np.frombuffer(raw, dtype="<u4").astype(np.uint32).view(np.int32).reshape(-1, NW)
+    """ints in [0, 2^384) -> (N, 12) int32 little-endian words (the host's
+    packing loop: `map` over `int.to_bytes`, no Python-level loop body)."""
+    raw = b"".join(map(int.to_bytes, map(int, values), repeat(48), repeat("little")))
+    return np.frombuffer(raw, dtype="<i4").astype(np.int32).reshape(-1, NW)
 
 
 def words_to_ints(words) -> list:

@@ -74,7 +74,7 @@ def test_every_kernel_has_a_source_and_a_counter():
     assert set(cuda_build.LAUNCHES) == {
         "ladder_g1", "ladder_g2", "miller", "fold_final_exp",
         "lane_sum_g1", "lane_sum_g2", "to_affine_g1", "to_affine_g2",
-        "ladder_g1_chain", "ladder_g2_chain", "ladder_g1_w2", "ladder_g2_w2",
+        "jacobian_to_affine_g1", "jacobian_to_affine_g2", "ladder_g1_chain", "ladder_g2_chain", "ladder_g1_w2", "ladder_g2_w2",
         "pair_final_exp", "mma_probe_i8", "mma_probe_bf16",
     }
 
@@ -104,6 +104,8 @@ WRAPPERS = {
     "lane_sum_g2": lambda: curve_kernels.lane_sum(_point(2, 4), 2, require_kernel=True),
     "to_affine_g1": lambda: curve_kernels.to_affine(_point(1, 4), require_kernel=True),
     "to_affine_g2": lambda: curve_kernels.to_affine(_point(2, 4), require_kernel=True),
+    "jacobian_to_affine_g1": lambda: curve_kernels.jacobian_to_affine(_point(1, 4), require_kernel=True),
+    "jacobian_to_affine_g2": lambda: curve_kernels.jacobian_to_affine(_point(2, 4), require_kernel=True),
     "ladder_g1_chain": lambda: ladder.ladder(_point(1, 4), _bits(4), form="chain", require_kernel=True),
     "ladder_g2_chain": lambda: ladder.ladder(_point(2, 4), _bits(4), form="chain", require_kernel=True),
     "ladder_g1_w2": lambda: ladder.ladder(_point(1, 4), _bits(4), form="w2", require_kernel=True),
@@ -204,6 +206,7 @@ def test_c_entry_matches_its_ctypes_signature(source, entry):
 @pytest.mark.parametrize("stack", [True, False], ids=["stack_frame", "no_stack_frame"])
 def test_ptxas_summary_reads_every_entry(stack):
     used = "Used 94 registers, used 0 barriers" + (", 2352 bytes cumulative stack size" if stack else "")
+    used += ", 24576 bytes smem"
     text = (
         "ptxas info    : Compiling entry function '_Zk' for 'sm_90a'\n"
         "ptxas info    : Function properties for _Zk\n"
@@ -211,7 +214,8 @@ def test_ptxas_summary_reads_every_entry(stack):
         f"ptxas info    : {used}, 400 bytes cmem[0]\n"
     )
     out = cuda_build.ptxas_summary(text)
-    assert out["kernels"] == {"_Zk": {"registers": 94, "stack_bytes": 2352 if stack else 0}}
+    assert out["kernels"] == {
+        "_Zk": {"registers": 94, "stack_bytes": 2352 if stack else 0, "shared_bytes": 24576}}
     assert (out["spill_store_bytes"], out["spill_load_bytes"]) == (8, 4)
 
 

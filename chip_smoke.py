@@ -8,10 +8,11 @@ non-zero without its result line:
 
  1. the card's name and power limit (nvidia-smi, printed as is);
  2. build every CUDA kernel from lighthouse_tpu_torch/csrc (one nvcc per
-    source, in parallel), with what ptxas reports per kernel (K1's window
-    body and the helpers on lines of their own: registers, stack frame,
-    spills, shared memory) and the dynamic shared memory of the lane-group
-    kernels K2 and K3;
+    source, in parallel), with what ptxas reports per kernel (K1's six
+    instantiations, which must have no stack frame and no spills, and the
+    helpers on lines of their own: registers, stack frame, spills, shared
+    memory) and the dynamic shared memory of the lane-group kernels K2 and
+    K3;
  2b. the register-resident Fp product of K1's window body, K2 and K3 alone
     (ops/fp_product.py): one thread's dependent chain (latency) and every
     SM full of chains (product rate), both exact against Python integers;
@@ -41,9 +42,13 @@ non-zero without its result line:
     (median of the timed runs); the slot once more with its signatures
     normalised to Z = 1 outside the timed region, as decompressed gossip
     carries them, and the decompression of 512 signatures timed alone;
- 6. K1's chain and 2-bit window bodies against their plain versions on
-    the slot's ladder inputs, and the flat batch end to end with
-    ladder="chain" and ladder="w2" (valid True, forged False);
+ 6. K1's chain and 2-bit window forms against their plain versions on
+    the slot's and the flat batch's ladder inputs, their bounds from the rows a lane runs (the
+    chain's on set bits only and in lockstep) and each form's device time
+    per lane product row; then on an edge batch (identity lanes, zero,
+    all-one and top-only bits, 63 bits and 1); and the flat batch end to
+    end with ladder="chain" and ladder="w2" (valid True, forged False,
+    device_ms of 3 timed runs);
  7. per-set verdicts after a failed batch: the slot with 3 forged
     signatures (committees 0, 31, 63) fails as a batch, then
     verify_signature_sets_individually flags exactly those 3 -- two device
@@ -144,12 +149,17 @@ def main() -> int:
                                                       lanes.K3_SET_LANES)}
     emit("build", seconds=time.perf_counter() - t0, nvcc=cuda_build.nvcc_version(), ptxas=ptxas,
          lane_shared_bytes=lane_smem)
+    # K1: one body, six instantiations (window, chain, w2 on G1 and G2)
     k1_ptxas = {
         name: dict(rec, **ptxas["ladder"]["functions"].get(name, {}))
-        for name, rec in ptxas["ladder"]["kernels"].items() if "window_kernel" in name
+        for name, rec in ptxas["ladder"]["kernels"].items()
     }
-    emit("k1_ptxas", kernels=k1_ptxas)
-    assert len(k1_ptxas) == 2, "K1's window body: expected a G1 and a G2 kernel"
+    k1_frames = sorted(n for n, r in k1_ptxas.items()
+                       if r["stack_bytes"] or r.get("stack_frame") or r.get("spill_stores"))
+    emit("k1_ptxas", kernels=k1_ptxas, stack_frames_or_spills=k1_frames,
+         spill_store_bytes=ptxas["ladder"]["spill_store_bytes"])
+    assert len(k1_ptxas) == 6 and all("ladder_kernel" in n for n in k1_ptxas), "K1: expected 6 kernels"
+    assert not k1_frames and not ptxas["ladder"]["spill_store_bytes"], f"K1: stack frame or spills {k1_frames}"
     # the helpers: registers, stack frame, spills, static and dynamic shared
     # memory (the fold's file is dynamic, curve_kernels.fold_shared_bytes)
     helpers_ptxas = {
@@ -467,42 +477,95 @@ def main() -> int:
          slot_decompress_us_per_sig=decompress_s / len(raw) * 1e6, z_one=True)
 
     # ------------------------------ 6. K1's chain and 2-bit window forms
-    group_cost = {}
-    for w in (1, 2):  # Fp products of one complete addition / doubling
-        one = curve.group(w).identity(1, dev)
-        p0 = fd.FP_PRODUCTS
-        curve.group(w).add(one, one)
-        p1 = fd.FP_PRODUCTS
-        curve.group(w).double(one)
-        group_cost[w] = {"add": p1 - p0, "dbl": fd.FP_PRODUCTS - p1}
-    inp = ladder_inputs["grouped"]
-    bits_t = torch.as_tensor(inp["bits"], device=dev).t().contiguous()  # (64, lanes)
-    n_bits, lanes = bits_t.shape
-    set_bits = int(bits_t.sum())
-    for form in ("chain", "w2"):
+    # the bound counts the products of the rows a lane runs
+    # (ladder_rows.lane_products): w2's, and the chain's on set bits only
+    # (bound_ms) and in lockstep, an addition on every bit (bound_lockstep_ms)
+    def ops_ms(products):
+        return products * IMAD_PER_FP_PRODUCT / INT_OPS_PER_S * 1e3
+
+    rows_a_lane, ns_per_lane_row, form_shapes = {}, {}, {}
+    for label in ("grouped", "flat"):  # the slot's ladder inputs, then the flat batch's
+        inp = ladder_inputs[label]
+        bits_t = torch.as_tensor(inp["bits"], device=dev).t().contiguous()  # (64, lanes)
+        n_bits, n_lanes = bits_t.shape
+        set_bits = int(bits_t.sum())
+        form_shapes[label] = {"lanes": n_lanes, "n_bits": n_bits, "set_bits": set_bits}
+        for form in ("chain", "w2"):
+            n = n_bits if form == "chain" else -(-n_bits // 2)
+            for w in (1, 2):
+                name = f"ladder_g{w}_{form}"
+                pt = inp[w]
+                lanes_w = pt[0].shape[-1]
+                products = lanes_w * ladder_rows.lane_products(w, n, form, set_bits / n_lanes if form == "chain" else None)
+                rec = hold(name, lambda: ladder.ladder(pt, bits_t, form=form),
+                           lambda: ladder.ladder_plain(pt, bits_t, form=form), nb(pt, bits_t),
+                           products=products)
+                if form == "chain":
+                    rec["bound_lockstep_ms"] = ops_ms(lanes_w * ladder_rows.lane_products(w, n, form))
+                if label == "grouped":
+                    rows_a_lane[name] = ladder_rows.lane_products(w, n, form)
+                records[label][name] = rec
+    g = form_shapes["grouped"]
+    # ms a lane's product row, all three forms at the slot's lanes: the
+    # chain's and w2's extra scratch copies show as a higher figure
+    for w in (1, 2):
+        rows_a_lane[f"ladder_g{w}"] = ladder_rows.lane_products(w, window_ladder.num_windows(64))
+    for name, rows in rows_a_lane.items():
+        ns_per_lane_row[name] = records["grouped"][name]["ms"] * 1e6 / (g["lanes"] * rows)
+    emit("ladder_forms", shapes=form_shapes, products_a_lane=rows_a_lane,
+         products_a_lane_chain_set_bits={w: ladder_rows.lane_products(w, g["n_bits"], "chain", g["set_bits"] / g["lanes"])
+                                         for w in (1, 2)},
+         ns_per_lane_product=ns_per_lane_row)
+
+    # the chain and w2 on an edge batch: 128 live and 128 identity lanes of
+    # the slot's ladder inputs, bits by lane mod 4 (zero; all one; random;
+    # the top bit alone), at 63 bits (w2 pads a zero top bit) and at 1 (the
+    # chain runs no doubling); exact against the plain version
+    forms_edge = {}
+    rng = np.random.default_rng(6)
+    for n_e in (63, 1):
+        eb = torch.from_numpy(rng.integers(0, 2, (n_e, 256)).astype(np.int32))
+        eb[:, 0::4] = 0
+        eb[:, 1::4] = 1
+        eb[:-1, 3::4] = 0
+        eb[-1, 3::4] = 1
+        eb = eb.contiguous().to(dev)
         for w in (1, 2):
-            name = f"ladder_g{w}_{form}"
-            pt = inp[w]
-            # the chain adds only on set bits: count what these bits need
-            chain_products = (set_bits * group_cost[w]["add"]
-                              + lanes * (n_bits - 1) * group_cost[w]["dbl"])
-            records["grouped"][name] = hold(
-                name, lambda: ladder.ladder(pt, bits_t, form=form),
-                lambda: ladder.ladder_plain(pt, bits_t, form=form), nb(pt, bits_t),
-                products=chain_products if form == "chain" else None)
-    emit("ladder_forms", lanes=lanes, n_bits=n_bits, set_bits=set_bits, group_cost=group_cost)
+            src = ladder_inputs["grouped"][w]
+            at_inf = (src[2] == 0).all(dim=1).all(dim=0)
+            inf_lanes, live_lanes = at_inf.nonzero().flatten(), (~at_inf).nonzero().flatten()
+            cols = torch.cat([live_lanes[:128], inf_lanes[:128]])[torch.from_numpy(rng.permutation(256)).to(dev)]
+            pt = tuple(c[..., cols].contiguous() for c in src)
+            for form in ("chain", "w2"):
+                out_k = ladder.ladder(pt, eb, form=form)
+                out_p = ladder.ladder_plain(pt, eb, form=form)
+                err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in zip(out_k, out_p))
+                forms_edge[f"ladder_g{w}_{form}_bits{n_e}"] = {
+                    "lanes": 256, "identity_lanes": int((pt[2] == 0).all(dim=1).all(dim=0).sum()),
+                    "n_bits": n_e, "max_abs_err": err, "held": err == 0}
+                assert err == 0, f"K1 {form} G{w}, {n_e} bits: the edge batch differs from the plain version"
+    records["forms_edge"] = forms_edge
+    emit("k1_forms_edge", **forms_edge)
 
     form_launches = {}
     for form in ("chain", "w2"):
         cuda_build.reset_launches()
         t0 = time.perf_counter()
         ok = api.verify_signature_sets(flat, seed=40, device="cuda", ladder=form)
-        wall = time.perf_counter() - t0
+        first_s = time.perf_counter() - t0
         form_launches[form] = dict(cuda_build.LAUNCHES)
+        walls, device_ms = [], []
+        for r in range(3):
+            t0 = time.perf_counter()
+            assert api.verify_signature_sets(flat, seed=41 + r, device="cuda", ladder=form) is True
+            walls.append(time.perf_counter() - t0)
+            device_ms.append(gpu_backend.LAST_HOST_STATS["device_ms"])
         forged = T.forge(flat, len(flat) // 2)
         bad = api.verify_signature_sets(forged, seed=40, device="cuda", ladder=form)
         emit("end_to_end_ladder_form", batch="flat", form=form, sets=len(flat), verdict=ok,
-             forged_verdict=bad, wall_s=wall, launches=form_launches[form])
+             forged_verdict=bad, first_call_s=first_s, p50_s=statistics.median(walls),
+             device_ms_p50=statistics.median(device_ms), device_ms=device_ms,
+             launches=form_launches[form])
         assert ok is True and bad is False, f"flat batch with ladder={form}: wrong verdict"
         missing = [f"ladder_g{w}_{form}" for w in (1, 2) if form_launches[form][f"ladder_g{w}_{form}"] == 0]
         assert not missing, f"ladder={form}: the path launched no {missing}"
@@ -610,7 +673,7 @@ def main() -> int:
     csrc = "lighthouse_tpu_torch/csrc/"
     helper = "a step that is XLA on the TPU, outside any Pallas kernel"
     host = "a step that is host Python in the JAX package (affine conversion and packing)"
-    forms_note = "slot ladder inputs; launches from the flat batch with ladder={}"
+    forms_note = "slot ladder inputs, flat batch's under flat; launches from the flat batch with ladder={}"
     meta = {  # name -> (source, what it replaces, note)
         "ladder_g1": (csrc + "ladder.cu", "lighthouse_tpu/ops/pallas_ladder.py:101", None),
         "ladder_g2": (csrc + "ladder.cu", "lighthouse_tpu/ops/pallas_ladder.py:101", None),
@@ -649,6 +712,7 @@ def main() -> int:
         elif name.endswith(("_chain", "_w2")):
             form = name.rsplit("_", 1)[1]
             rec, launches = records["grouped"][name], form_launches[form][name]
+            entry["flat"] = {k: records["flat"][name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
         elif name == "pair_final_exp":
             rec, launches = records["per_set"][name], per_set_launches[name]
             entry["slice"] = records["per_set"]["pair_final_exp_slice"]
@@ -660,6 +724,8 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms"), "held": True,
             "note": note,
         })
+        if "bound_lockstep_ms" in rec:
+            entry["bound_lockstep_ms"] = rec["bound_lockstep_ms"]
         if name == "miller":
             entry["per_set"] = records["per_set"]["miller"] | {"launches": per_set_launches[name]}
         kernels.append(entry)

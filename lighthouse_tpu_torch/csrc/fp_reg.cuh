@@ -1,8 +1,8 @@
 // Register-resident Fp arithmetic: 12 little-endian 32-bit words in
 // Montgomery form (R = 2^384), every function fully inlined, nothing in
 // local memory, and a slot file's loads, stores and operand sums. K2 and K3
-// (lanes.cuh) and K1's window body (ladder.cu) run their products and sums
-// here; csrc/fp_product.cu times `fp_mul` alone.
+// (lanes.cuh), K1 (ladder.cu) and the helpers (curve_helpers.cu) run their
+// products and sums here; csrc/fp_product.cu times `fp_mul` alone.
 //
 // `fp_mul` is SOS over 12 words with 64-bit carries. It was faster on the
 // card than CIOS with 64-bit carries and than CIOS with PTX carry chains

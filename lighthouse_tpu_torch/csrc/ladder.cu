@@ -1,5 +1,5 @@
 // K1 -- the per-lane RLC scalar ladders, [k_i] P_i per lane, for G1 and G2,
-// in three bodies: the signed-digit window (the verify path's default), the
+// in three forms: the signed-digit window (the verify path's default), the
 // per-bit double-add chain and the 2-bit unsigned window.
 //
 // Replaces the TPU kernels of lighthouse_tpu/ops/pallas_ladder.py, all
@@ -14,65 +14,64 @@
 //             doublings and one complete addition of table[d] from
 //             {O, P, 2P, 3P} (tcurve.window2_table / window2_step).
 //
-// What bounds them on the H100: integer multiply-adds. For a 64-bit scalar
-// the window body costs 17 x (4 doublings + 1 addition) plus the 8-entry
-// table, 816 Fp products per G1 lane and 2,448 per G2 lane (Karatsuba
-// Fp2; 2,040 products' multiply-adds with the lazy reduction below); the
-// chain 63 doublings and one addition per set bit (~32), ~888 / 2,664; w2
-// 32 x (2 doublings + 1 addition) plus its table, ~916 / 2,748.
-// Each product is 288 32x32->64 multiply-adds; the bytes (one read of the
-// point and the digits or bits, one write of the result) are ~1% of that.
+// What bounds them on the H100: integer multiply-adds. Per 64-bit scalar a
+// G1 lane runs 816 Fp products in the window form (17 x (4 doublings + 1
+// addition) plus the table's 4 doublings and 3 additions), 916 in w2 (32 x
+// (2 + 1) plus 1 + 1) and 1,272 in the chain (63 doublings, and an addition
+// on every bit, since a warp runs in lockstep; 888 if it added on set bits
+// only); a G2 lane 2.5 times as many products' multiply-adds (an Fp2
+// product by Karatsuba with the lazy reduction below). Each product is 288
+// 32x32->64 multiply-adds; the bytes (one read of the point and the digits
+// or bits, one write of the result) are ~1% of that.
 //
-// Design of `chain` and `w2`: one thread per lane, the point and the
-// running sum in registers, w2's table in local memory (4 x 72 words a lane
-// on G2). The bits are the (n_bits, B) LSB-first bits, w2's digits the
-// MSB-first 2-bit (W, B) digits. The formulas are the header's RCB
-// Algorithm 7/9 in the stage order of curve.ProjectiveGroup, and each body
-// applies them in the order of its JAX counterpart, so the projective
-// X:Y:Z equal the plain version's word for word. w2's digit 0 adds the
-// identity entry, with no branch, as window2_step does; the chain skips
-// the addition of a clear bit, which leaves the same words as the JAX
-// select. ptxas -v (nvcc 12.9, sm_90a) gives both a local-memory frame for
-// the point structs that go by reference to the header's __noinline__
-// field functions.
-//
-// Design of `window` (the verify path): two threads a lane on G1 and G2
+// Design, one body for the three forms: two threads a lane on G1 and G2
 // alike, the lane's values in a file of Fp slots in shared memory, its
 // products register-resident and inlined (fp_reg.cuh), so nothing of the
 // field arithmetic is in local memory. Each doubling and addition is two
 // rounds of a MUL phase (the stage's independent products, half on each
 // thread) and a LIN phase (the stage's linear recombination, one canonical
 // Fp sum `lin_sum` a row, rows alternating between the threads), a warp
-// barrier after each; an addition first loads sign * table[|d|]. The rows
-// and the slot map are generated (ladder_rows.cuh from ops/ladder_rows.py,
-// which also runs them on Python integers for the CPU tests). A G1 row is
-// one Fp product; a G2 row is one Fp2 product by Karatsuba with lazy
-// reduction: three 24-word products, two Montgomery reductions. Each of
-// the kernel's phases has one site (one product, one reduction, one
-// `lin_sum`), because the card slows when the loop's code outgrows its
-// instruction cache (PERF.md). The table [0..8] P lives outside the thread,
-// in a scratch tensor that the wrapper allocates, [lane][entry][coordinate]
-// [word], 144 w bytes an entry read as 16-byte words; the kernel allocates
-// nothing. Digits arrive pre-recoded, signed window-major (W, B), as the
-// JAX kernel takes them; a magnitude is clamped to 0..8, the sign negates
-// Y of the entry, every value stays canonical, so X:Y:Z equal the plain
+// barrier after each; an addition first loads sign * entry into V3..V5.
+// The rows and the slot map are generated (ladder_rows.cuh from
+// ops/ladder_rows.py, which also runs them and the forms' steps on Python
+// integers for the CPU tests). A G1 row is one Fp product; a G2 row is one
+// Fp2 product by Karatsuba with lazy reduction: three 24-word products,
+// two Montgomery reductions. The kernel has one site each for the product,
+// the reduction and `lin_sum`, because the card slows when the loop's code
+// outgrows its instruction cache (PERF.md).
+//
+// A form is a schedule of steps (`Windowed`, `Chain`): a step loads the
+// point V0..V2 from a scratch entry or not, runs one doubling or one
+// addition of sign * entry, and stores V0..V2 to an entry or not. The
+// entries live outside the thread, in a scratch tensor that the wrapper
+// allocates, [lane][entry][coordinate][word], 144 w bytes an entry read as
+// 16-byte words, each copy split over the lane's threads; the kernel
+// allocates nothing. window and w2 keep the table [0, E) P there (E = 9, 4;
+// even entries by doubling, odd ones by adding P); window's digits arrive
+// pre-recoded, signed window-major (W, B), a magnitude clamped to 0..8 and
+// the sign negating Y of the entry; w2's are MSB-first (W, B) digits masked
+// & 3, whose 0 adds the identity entry with no branch. The chain keeps its
+// accumulator and addend there (E = 2) and adds the accumulator to the
+// addend in V0..V2: RCB's complete addition is symmetric in its inputs, so
+// the words are those of acc + addend. Its lanes add on every bit, in
+// lockstep with the warp's other lanes, and keep the sum where the bit is 1,
+// as the JAX select does: the warp barriers need every lane of the warp in
+// every phase. Every value stays canonical, so X:Y:Z equal the plain
 // version's word for word. One design serves the slot (32,768 lanes: the
 // card full of lanes, 12 warps an SM on G2, where shared memory is the
 // limit) and the flat batch (1,024 lanes: a lane's chain of dependent
 // products, halved by the two threads). ptxas -v (nvcc 12.9, sm_90a): G1
-// 76 registers, G2 168, no stack frame, no spills.
+// 76 registers (window, w2) and 73 (chain), G2 111 in all three forms, no
+// stack frame and no spills in any of the six.
 
 #include <cuda_runtime.h>
 
-#include "bls12_381.cuh"
 #include "fp_reg.cuh"
 #include "ladder_rows.cuh"
 
-using namespace bls;
+// ------------------------------------------------------------------ body
 
-// ------------------------------------------------------------ window body
-
-namespace k1w {
+namespace k1 {
 
 using fpr::add_words;
 using fpr::fp_add;
@@ -86,7 +85,6 @@ using fpr::store_slot;
 using fpr::u32;
 using fpr::u64;
 using k1rows::BLOCK;
-using k1rows::ENTRIES;
 using k1rows::T;
 
 template <int W>
@@ -260,34 +258,86 @@ __device__ __forceinline__ void add_in(u32* f, const u32* entry, bool neg, int t
   }
 }
 
-// the point V0..V2 <- the identity (0 : 1 : 0)
-template <int W>
-__device__ __forceinline__ void set_identity(u32* p) {
-  for (int i = 0; i < 3 * W * NW; i++) p[i] = i >= W * NW && i < W * NW + NW ? ONE_W[i - W * NW] : 0u;
-}
-
-// n words between a group's file and the table (16-byte aligned both)
-__device__ __forceinline__ void copy_words(u32* dst, const u32* src, int n) {
-  for (int q = 0; q < n / 4; q++)
+// n words between a group's file and the scratch (16-byte aligned both),
+// this thread's share: word quads tid, tid + T, ...
+__device__ __forceinline__ void copy_words(u32* dst, const u32* src, int n, int tid) {
+  for (int q = tid; q < n / 4; q += T)
     reinterpret_cast<uint4*>(dst)[q] = reinterpret_cast<const uint4*>(src)[q];
 }
 
-// A lane a group of T threads: the table [0..8] P into the scratch `table`
-// (even entries by doubling, odd ones by adding P, as tcurve.window_table),
-// then MSB first per window four doublings and one addition of sign *
-// table[|d|]. A doubling is MUL D1, LIN DBL_MID, MUL D3, LIN DBL_OUT; an
-// addition ADD_IN, MUL A1, LIN ADD_MID, MUL A3, LIN ADD_OUT; a warp
-// barrier after each. Where every thread does the same (the point's loads
-// and stores, the table build's copies), each does all of it.
-template <int W>
+// ------------------------------------------------------------ schedules
+
+// One step of a lane: V0..V2 <- entry `load` first (-1: none), then a
+// doubling (add < 0) or an addition of sign * entry `add`, then entry
+// `store` <- V0..V2 (-1: none). Whether a step adds is the same for every
+// lane of a step; `store` may differ.
+struct Step {
+  int load, add, store;
+  bool neg;
+};
+
+// window (E = 9, C = 4, signed digits: magnitudes d0 and signs d1,
+// LSB-first window-major) and w2 (E = 4, C = 2, MSB-first digits d0
+// masked & 3): the table's entries 2..E-1 (even ones by doubling entry
+// d / 2, odd ones by adding P to the last), then MSB first per window C
+// doublings, the first from the identity (entry 0), and one addition of
+// sign * table[digit]. The result is V0..V2, or the identity with no
+// windows.
+template <int E, int C, bool SIGNED>
+struct Windowed {
+  static_assert(SIGNED || (E & (E - 1)) == 0, "an unsigned digit is masked & (E - 1)");
+  static constexpr int ENTRIES = E;
+  static __device__ __forceinline__ int steps(int n) { return E - 2 + (C + 1) * n; }
+  static __device__ __forceinline__ int result(int n) { return n ? -1 : 0; }
+  static __device__ __forceinline__ Step step(int s, int n, const int32_t* d0,
+                                              const int32_t* d1, int B, int lane) {
+    if (s < E - 2) {
+      const int d = s + 2;
+      return d & 1 ? Step{-1, 1, d, false} : Step{d / 2, -1, d, false};
+    }
+    const int k = (s - (E - 2)) % (C + 1), j = (s - (E - 2)) / (C + 1);
+    if (k < C) return Step{s == E - 2 ? 0 : -1, -1, -1, false};
+    if constexpr (!SIGNED) {
+      return Step{-1, d0[(size_t)j * B + lane] & (E - 1), -1, false};
+    } else {
+      const size_t at = (size_t)(n - 1 - j) * B + lane;
+      const int mag = d0[at];  // recode_bits keeps |d| <= 8
+      return Step{-1, mag < 0 ? 0 : (mag > E - 1 ? E - 1 : mag), -1, d1[at] != 0};
+    }
+  }
+};
+
+// chain (E = 2): entry 0 the accumulator, from the identity, entry 1 the
+// addend, from P. Per bit d0[i], LSB first: the addend (V0..V2) plus the
+// accumulator, kept as the accumulator where the bit is 1; between bits
+// the addend doubles. The result is the accumulator.
+struct Chain {
+  static constexpr int ENTRIES = 2;
+  static __device__ __forceinline__ int steps(int n) { return 2 * n - 1; }
+  static __device__ __forceinline__ int result(int) { return 0; }
+  static __device__ __forceinline__ Step step(int s, int, const int32_t* d0, const int32_t*,
+                                              int B, int lane) {
+    if (s & 1) return Step{1, -1, 1, false};
+    return Step{-1, 0, d0[(size_t)(s / 2) * B + lane] == 1 ? 0 : -1, false};
+  }
+};
+
+using WindowForm = Windowed<k1rows::ENTRIES_WINDOW, k1rows::DOUBLINGS_WINDOW, true>;
+using W2Form = Windowed<k1rows::ENTRIES_W2, k1rows::DOUBLINGS_W2, false>;
+static_assert(k1rows::ENTRIES_CHAIN == Chain::ENTRIES, "the chain's scratch");
+
+// A lane a group of T threads runs form S's steps. A doubling is MUL D1,
+// LIN DBL_MID, MUL D3, LIN DBL_OUT; an addition ADD_IN, MUL A1, LIN
+// ADD_MID, MUL A3, LIN ADD_OUT; a warp barrier after each, and after each
+// step's loads and stores, which the lane's threads split between them.
+template <int W, class S>
 __global__ void __launch_bounds__(BLOCK)
-    window_kernel(const int32_t* __restrict__ X, const int32_t* __restrict__ Y,
-                  const int32_t* __restrict__ Z, const int32_t* __restrict__ mags,
-                  const int32_t* __restrict__ negs, int n_windows, int B, int32_t* table,
-                  int32_t* oX, int32_t* oY, int32_t* oZ) {
+    ladder_kernel(const int32_t* __restrict__ X, const int32_t* __restrict__ Y,
+                  const int32_t* __restrict__ Z, const int32_t* __restrict__ d0,
+                  const int32_t* __restrict__ d1, int n, int B, int32_t* scratch, int32_t* oX,
+                  int32_t* oY, int32_t* oZ) {
   constexpr int GROUPS = BLOCK / T, SLOTS = Width<W>::SLOTS, WORDS = Width<W>::WORDS;
-  constexpr int ES = 3 * W * NW;  // words of a point, a table entry
-  constexpr int BUILD = ENTRIES - 2;  // table steps, entries 2..8
+  constexpr int ES = 3 * W * NW;  // words of a point, a scratch entry
   __shared__ uint4 smem[(WORDS + GROUPS * SLOTS * NW) / 4];
   u32* tab = reinterpret_cast<u32*>(smem);
   for (int i = threadIdx.x; i < WORDS; i += BLOCK) tab[i] = Width<W>::table()[i];
@@ -297,36 +347,22 @@ __global__ void __launch_bounds__(BLOCK)
   const unsigned mask = __ballot_sync(0xffffffffu, lane < B);
   if (lane >= B) return;
   u32* f = tab + WORDS + g * SLOTS * NW;
-  u32* ent = reinterpret_cast<u32*>(table) + (size_t)lane * ENTRIES * ES;
-  for (int i = 0; i < W * NW; i++) {
-    f[i] = (u32)X[(size_t)i * B + lane];
-    f[W * NW + i] = (u32)Y[(size_t)i * B + lane];
-    f[2 * W * NW + i] = (u32)Z[(size_t)i * B + lane];
+  u32* ent = reinterpret_cast<u32*>(scratch) + (size_t)lane * S::ENTRIES * ES;
+  // V0..V2 and entry 1 <- P, entry 0 <- the identity (0 : 1 : 0)
+  for (int i = tid; i < ES; i += T) {
+    const int32_t* src = i < W * NW ? X : (i < 2 * W * NW ? Y : Z);
+    f[i] = ent[ES + i] = (u32)src[(size_t)(i % (W * NW)) * B + lane];
+    ent[i] = i >= W * NW && i < W * NW + NW ? ONE_W[i - W * NW] : 0u;
   }
-  copy_words(ent + ES, f, ES);
-  set_identity<W>(ent);
-  const int n_steps = BUILD + 5 * n_windows;
+  __syncwarp(mask);
+  const int n_steps = S::steps(n);
   for (int s = 0; s < n_steps; s++) {
-    bool is_add;
-    int e = 1;
-    bool neg = false;
-    if (s < BUILD) {
-      const int d = s + 2;
-      is_add = d & 1;
-      if (!is_add) copy_words(f, ent + (d / 2) * ES, ES);
-    } else {
-      const int k = (s - BUILD) % 5, wi = n_windows - 1 - (s - BUILD) / 5;
-      if (s == BUILD) set_identity<W>(f);
-      is_add = k == 4;
-      if (is_add) {
-        const int mag = mags[(size_t)wi * B + lane];
-        e = mag < 0 ? 0 : (mag > ENTRIES - 1 ? ENTRIES - 1 : mag);  // recode_bits keeps |d| <= 8
-        neg = negs[(size_t)wi * B + lane] != 0;
-      }
-    }
+    const Step st = S::step(s, n, d0, d1, B, lane);
+    if (st.load >= 0) copy_words(f, ent + st.load * ES, ES, tid);
     __syncwarp(mask);
+    const bool is_add = st.add >= 0;
     if (is_add) {
-      add_in<W>(f, ent + e * ES, neg, tid);
+      add_in<W>(f, ent + st.add * ES, st.neg, tid);
       __syncwarp(mask);
     }
 #pragma unroll 1
@@ -337,131 +373,67 @@ __global__ void __launch_bounds__(BLOCK)
       lin_rows(f, tab, p, tid);
       __syncwarp(mask);
     }
-    if (s < BUILD) {
-      copy_words(ent + (s + 2) * ES, f, ES);
-      __syncwarp(mask);  // read by every thread before the next step writes
-    }
+    if (st.store >= 0) copy_words(ent + st.store * ES, f, ES, tid);
+    __syncwarp(mask);  // V0..V2 read by the stores before the next step writes it
   }
-  for (int i = 0; i < W * NW; i++) {
-    oX[(size_t)i * B + lane] = (int32_t)f[i];
-    oY[(size_t)i * B + lane] = (int32_t)f[W * NW + i];
-    oZ[(size_t)i * B + lane] = (int32_t)f[2 * W * NW + i];
+  const int r = S::result(n);
+  const u32* res = r < 0 ? f : ent + r * ES;
+  for (int i = tid; i < W * NW; i += T) {
+    oX[(size_t)i * B + lane] = (int32_t)res[i];
+    oY[(size_t)i * B + lane] = (int32_t)res[W * NW + i];
+    oZ[(size_t)i * B + lane] = (int32_t)res[2 * W * NW + i];
   }
 }
 
-}  // namespace k1w
+}  // namespace k1
 
-// the per-bit double-add chain, LSB first (tcurve.mul_scalar_bits); the
-// last doubling of the addend is never used, so it is not computed
-template <class F>
-__global__ void ladder_chain_kernel(const int32_t* __restrict__ X,
-                                    const int32_t* __restrict__ Y,
-                                    const int32_t* __restrict__ Z,
-                                    const int32_t* __restrict__ bits, int n_bits,
-                                    int B, int32_t* oX, int32_t* oY, int32_t* oZ) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  Proj<F> addend, acc;
-  proj_load(addend, X, Y, Z, lane, B);
-  proj_identity(acc);
-  for (int i = 0; i < n_bits; i++) {
-    if (bits[(size_t)i * B + lane] == 1) proj_add(acc, acc, addend);
-    if (i + 1 < n_bits) proj_dbl(addend, addend);
-  }
-  proj_store(oX, oY, oZ, lane, B, acc);
-}
-
-// the 2-bit unsigned window, MSB-first digits in 0..3 (window2_step)
-template <class F>
-__global__ void ladder_w2_kernel(const int32_t* __restrict__ X,
-                                 const int32_t* __restrict__ Y,
-                                 const int32_t* __restrict__ Z,
-                                 const int32_t* __restrict__ digits,
-                                 int n_windows, int B, int32_t* oX, int32_t* oY,
-                                 int32_t* oZ) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  Proj<F> table[4];
-  proj_identity(table[0]);
-  proj_load(table[1], X, Y, Z, lane, B);
-  proj_dbl(table[2], table[1]);
-  proj_add(table[3], table[2], table[1]);
-  Proj<F> acc;
-  proj_identity(acc);
-  for (int j = 0; j < n_windows; j++) {
-    proj_dbl(acc, acc);
-    proj_dbl(acc, acc);
-    proj_add(acc, acc, table[digits[(size_t)j * B + lane] & 3]);
-  }
-  proj_store(oX, oY, oZ, lane, B, acc);
-}
-
-// the chain and w2 bodies: the point (X, Y, Z) and one (n, B) operand, the
-// bits or the digits
-template <class F, bool W2>
-static int launch(const void* X, const void* Y, const void* Z,
-                  const void* digits, int n, int B, void* oX, void* oY,
-                  void* oZ, void* stream) {
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  if (W2)
-    ladder_w2_kernel<F><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)X, (const int32_t*)Y, (const int32_t*)Z,
-        (const int32_t*)digits, n, B, (int32_t*)oX, (int32_t*)oY, (int32_t*)oZ);
-  else
-    ladder_chain_kernel<F><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)X, (const int32_t*)Y, (const int32_t*)Z,
-        (const int32_t*)digits, n, B, (int32_t*)oX, (int32_t*)oY, (int32_t*)oZ);
-  return (int)cudaGetLastError();
-}
-
-template <int W>
-static int launch_window(const void* X, const void* Y, const void* Z, const void* mags,
-                         const void* negs, int n_windows, int B, void* table, void* oX,
-                         void* oY, void* oZ, void* stream) {
+// d0, d1: window's magnitudes and signs; the chain's bits or w2's digits
+// and no d1
+template <int W, class S>
+static int launch(const void* X, const void* Y, const void* Z, const void* d0, const void* d1,
+                  int n, int B, void* scratch, void* oX, void* oY, void* oZ, void* stream) {
   constexpr int groups = k1rows::BLOCK / k1rows::T;
   const int blocks = (B + groups - 1) / groups;
-  k1w::window_kernel<W><<<blocks, k1rows::BLOCK, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)X, (const int32_t*)Y, (const int32_t*)Z, (const int32_t*)mags,
-      (const int32_t*)negs, n_windows, B, (int32_t*)table, (int32_t*)oX, (int32_t*)oY,
-      (int32_t*)oZ);
+  k1::ladder_kernel<W, S><<<blocks, k1rows::BLOCK, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)X, (const int32_t*)Y, (const int32_t*)Z, (const int32_t*)d0,
+      (const int32_t*)d1, n, B, (int32_t*)scratch, (int32_t*)oX, (int32_t*)oY, (int32_t*)oZ);
   return (int)cudaGetLastError();
 }
 
-extern "C" int lh_ladder_g1(const void* X, const void* Y, const void* Z,
-                            const void* mags, const void* negs, int n_windows,
-                            int B, void* table, void* oX, void* oY, void* oZ,
-                            void* stream) {
-  return launch_window<1>(X, Y, Z, mags, negs, n_windows, B, table, oX, oY, oZ, stream);
+extern "C" int lh_ladder_g1(const void* X, const void* Y, const void* Z, const void* mags,
+                            const void* negs, int n_windows, int B, void* scratch, void* oX,
+                            void* oY, void* oZ, void* stream) {
+  return launch<1, k1::WindowForm>(X, Y, Z, mags, negs, n_windows, B, scratch, oX, oY, oZ, stream);
 }
 
-extern "C" int lh_ladder_g2(const void* X, const void* Y, const void* Z,
-                            const void* mags, const void* negs, int n_windows,
-                            int B, void* table, void* oX, void* oY, void* oZ,
-                            void* stream) {
-  return launch_window<2>(X, Y, Z, mags, negs, n_windows, B, table, oX, oY, oZ, stream);
+extern "C" int lh_ladder_g2(const void* X, const void* Y, const void* Z, const void* mags,
+                            const void* negs, int n_windows, int B, void* scratch, void* oX,
+                            void* oY, void* oZ, void* stream) {
+  return launch<2, k1::WindowForm>(X, Y, Z, mags, negs, n_windows, B, scratch, oX, oY, oZ, stream);
 }
 
-extern "C" int lh_ladder_g1_chain(const void* X, const void* Y, const void* Z,
-                                  const void* bits, int n_bits, int B, void* oX,
-                                  void* oY, void* oZ, void* stream) {
-  return launch<Fp, false>(X, Y, Z, bits, n_bits, B, oX, oY, oZ, stream);
+extern "C" int lh_ladder_g1_chain(const void* X, const void* Y, const void* Z, const void* bits,
+                                  int n_bits, int B, void* scratch, void* oX, void* oY, void* oZ,
+                                  void* stream) {
+  return launch<1, k1::Chain>(X, Y, Z, bits, nullptr, n_bits, B, scratch, oX, oY, oZ, stream);
 }
 
-extern "C" int lh_ladder_g2_chain(const void* X, const void* Y, const void* Z,
-                                  const void* bits, int n_bits, int B, void* oX,
-                                  void* oY, void* oZ, void* stream) {
-  return launch<Fp2, false>(X, Y, Z, bits, n_bits, B, oX, oY, oZ, stream);
+extern "C" int lh_ladder_g2_chain(const void* X, const void* Y, const void* Z, const void* bits,
+                                  int n_bits, int B, void* scratch, void* oX, void* oY, void* oZ,
+                                  void* stream) {
+  return launch<2, k1::Chain>(X, Y, Z, bits, nullptr, n_bits, B, scratch, oX, oY, oZ, stream);
 }
 
-extern "C" int lh_ladder_g1_w2(const void* X, const void* Y, const void* Z,
-                               const void* digits, int n_windows, int B, void* oX,
-                               void* oY, void* oZ, void* stream) {
-  return launch<Fp, true>(X, Y, Z, digits, n_windows, B, oX, oY, oZ, stream);
+extern "C" int lh_ladder_g1_w2(const void* X, const void* Y, const void* Z, const void* digits,
+                               int n_windows, int B, void* scratch, void* oX, void* oY, void* oZ,
+                               void* stream) {
+  return launch<1, k1::W2Form>(X, Y, Z, digits, nullptr, n_windows, B, scratch, oX, oY, oZ,
+                               stream);
 }
 
-extern "C" int lh_ladder_g2_w2(const void* X, const void* Y, const void* Z,
-                               const void* digits, int n_windows, int B, void* oX,
-                               void* oY, void* oZ, void* stream) {
-  return launch<Fp2, true>(X, Y, Z, digits, n_windows, B, oX, oY, oZ, stream);
+extern "C" int lh_ladder_g2_w2(const void* X, const void* Y, const void* Z, const void* digits,
+                               int n_windows, int B, void* scratch, void* oX, void* oY, void* oZ,
+                               void* stream) {
+  return launch<2, k1::W2Form>(X, Y, Z, digits, nullptr, n_windows, B, scratch, oX, oY, oZ,
+                               stream);
 }

@@ -1,5 +1,5 @@
-// K1's window body on lane groups: the rows of csrc/ladder.cu's window
-// kernel, generated by lighthouse_tpu_torch/ops/ladder_rows.py. Do not
+// K1 on lane groups: the rows of csrc/ladder.cu's kernel and the forms'
+// schedules, generated by lighthouse_tpu_torch/ops/ladder_rows.py. Do not
 // edit; regenerate with
 //     python -m lighthouse_tpu_torch.ops.ladder_rows
 // Table: [MUL index | LIN index | MUL rows | LIN rows | terms], u32
@@ -18,7 +18,12 @@ namespace k1rows {
 
 constexpr int T = 2;  // threads a lane
 constexpr int BLOCK = 64;  // threads a block
-constexpr int ENTRIES = 9;  // the table [0..8] P
+// the forms' points of scratch a lane and the window forms' doublings a window
+constexpr int ENTRIES_WINDOW = 9;
+constexpr int ENTRIES_W2 = 4;
+constexpr int ENTRIES_CHAIN = 2;
+constexpr int DOUBLINGS_WINDOW = 4;
+constexpr int DOUBLINGS_W2 = 2;
 constexpr int NONE = 63;  // an absent second term of a MUL operand
 constexpr int MUL_INDEX = 0, LIN_INDEX = 8;
 

@@ -2,8 +2,8 @@
 // runs the tower's bilinear programs on one Fp12 chain.
 //
 // An Fp value is 12 little-endian 32-bit words in Montgomery form (R =
-// 2^384), canonical (< p) everywhere, like bls12_381.cuh's: a kernel built
-// on this header agrees with the plain PyTorch versions word for word.
+// 2^384), canonical (< p) everywhere, like fp_reg.cuh's: a kernel built on
+// this header agrees with the plain PyTorch versions word for word.
 //
 // The group's slot file. Each group owns NS Fp slots in shared memory, laid
 // out [slot][word] (word j of slot s at file[12 s + j]), so a lane reads a

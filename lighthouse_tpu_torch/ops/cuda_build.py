@@ -1,11 +1,10 @@
 """Build the port's CUDA kernels with nvcc and call them through ctypes.
 
-Each source under `lighthouse_tpu_torch/csrc/` (one per kernel family; K1's
-`chain` and `w2` bodies include `bls12_381.cuh`, K1's window body, K2, K3,
-the helpers and the product probe the register arithmetic of `fp_reg.cuh`,
-K2 and K3 through `lanes.cuh`) compiles at first use into its
-own shared library with a plain C interface under
-`lighthouse_tpu_torch/build/`:
+Each source under `lighthouse_tpu_torch/csrc/` (one per kernel family; K1,
+K2, K3, the helpers and the Fp product's timing include the register
+arithmetic of `fp_reg.cuh`, K2, K3 and the product through `lanes.cuh`)
+compiles at first use into its own shared library with a plain C
+interface under `lighthouse_tpu_torch/build/`:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o build/lib<name>.so csrc/<name>.cu
@@ -38,7 +37,6 @@ import torch
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
 BUILD = os.path.join(PKG, "build")
-HEADER = "bls12_381.cuh"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,10 +46,10 @@ SOURCES = {
     "ladder": {
         "lh_ladder_g1": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
         "lh_ladder_g2": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
-        "lh_ladder_g1_chain": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
-        "lh_ladder_g2_chain": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
-        "lh_ladder_g1_w2": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
-        "lh_ladder_g2_w2": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+        "lh_ladder_g1_chain": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+        "lh_ladder_g2_chain": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+        "lh_ladder_g1_w2": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+        "lh_ladder_g2_w2": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
     },
     "miller": {"lh_miller": [_P, _P, _P, _P, _P, _I, _P, _P]},
     "final_exp": {

@@ -12,10 +12,13 @@ per `form`, the counterpart of `ladder_pallas(kind=...)`:
               same bits, turned into MSB-first digits by
               `window_ladder.digits_w2` (on the tensors' device).
 
-The CUDA source is `lighthouse_tpu_torch/csrc/ladder.cu`; the window body
-runs the rows of `ops/ladder_rows.py` on two threads a lane and keeps its
-table [0..8] P in a scratch tensor that this wrapper allocates (85 MB for
-32,768 G2 lanes). The plain versions are the ports of
+The CUDA source is `lighthouse_tpu_torch/csrc/ladder.cu`: one body for the
+three forms, running the rows of `ops/ladder_rows.py` on two threads a
+lane through each form's schedule of steps (`ladder_rows.steps`). A lane's
+points outside its shared-memory file -- the window forms' table, the
+chain's accumulator and addend, `ladder_rows.ENTRIES[form]` points -- live
+in a scratch tensor that this wrapper allocates (85 MB for 32,768 G2 lanes
+in the window form). The plain versions are the ports of
 `window_ladder.mul_scalar_bits_windowed_t` and
 `tcurve.mul_scalar_bits` / `mul_scalar_bits_w2` over `ops/curve.py`.
 
@@ -76,14 +79,10 @@ def ladder(pt, *operands, form: str = "window", require_kernel: bool = False):
         cuda_build.check(d, name, (n, B), X.device)
     out = tuple(torch.empty_like(X) for _ in range(3))
     if B:
-        if form == "window":
-            entry, kernel = f"lh_ladder_g{w}", f"ladder_g{w}"
-            # the table [0..8] P a lane, [lane][entry][coordinate][word]
-            table = torch.empty((B, lr.TABLE_ENTRIES, 3 * w, fd.NW), dtype=torch.int32,
-                                device=X.device)
-            args = (*operands, n, B, table)
-        else:
-            entry, kernel = f"lh_ladder_g{w}_{form}", f"ladder_g{w}_{form}"
-            args = (operands[0], n, B)
-        cuda_build.launch("ladder", entry, kernel, *pt, *args, *out)
+        suffix = "" if form == "window" else f"_{form}"
+        # the form's scratch points a lane, [lane][entry][coordinate][word]
+        scratch = torch.empty((B, lr.ENTRIES[form], 3 * w, fd.NW), dtype=torch.int32,
+                              device=X.device)
+        cuda_build.launch("ladder", f"lh_ladder_g{w}{suffix}", f"ladder_g{w}{suffix}", *pt,
+                          *operands, n, B, scratch, *out)
     return out

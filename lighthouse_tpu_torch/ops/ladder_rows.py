@@ -1,8 +1,9 @@
-"""K1's window body on lane groups: the slot map and the rows that
-`csrc/ladder.cu`'s window kernel runs, generated, and an emulator.
+"""K1 on lane groups: the slot map and the rows that `csrc/ladder.cu`'s
+kernel runs, generated, the three forms' step schedules, and an emulator.
 
 A group of T = 2 threads runs one lane's ladder, on G1 (w = 1, values in
-Fp) and G2 (w = 2, values in Fp2) alike. Its values live in a file of Fp
+Fp) and G2 (w = 2, values in Fp2) alike, in each of the three forms
+(`window`, `w2`, `chain`: `steps` below). Its values live in a file of Fp
 slots in shared memory; a value takes w consecutive slots. Each complete
 doubling and addition (the RCB formulas of `ops/curve.py`, in its stage
 order) is two rounds of two phases, a barrier after each:
@@ -26,10 +27,17 @@ Layout (value i at slot w i):
           operations, the stage's linear values inside them;
   PR0..PR5 (values 6..11) the stage's products.
 
+Outside the file each lane has ENTRIES[form] points of scratch (the
+wrapper allocates it): the window forms' table [0, E) P, or the chain's
+accumulator and addend. A step loads V0..V2 from an entry or not, runs one
+doubling or one addition of sign * entry, and stores V0..V2 to an entry or
+not (`steps`).
+
     python -m lighthouse_tpu_torch.ops.ladder_rows   # rewrites the header
 
-writes `csrc/ladder_rows.cuh`; `emulate` decodes the table's words as the
-kernel does and runs them on Python integers with the kernel's rules
+writes `csrc/ladder_rows.cuh`; `emulate(pt, *operands, form=)` decodes the
+table's words as the kernel does and runs each form's steps on Python
+integers with the kernel's rules
 (canonical slots, operands below 2p, the word-level operand sum of
 `lanes.lin_sum_words`, the phase rule of `lanes.commit_step`) and returns
 the kernel's words, which the CPU tests hold against `ladder.ladder_plain`.
@@ -52,6 +60,7 @@ import torch
 from lighthouse_tpu_torch.crypto.constants import P
 from lighthouse_tpu_torch.ops import field as fd
 from lighthouse_tpu_torch.ops.lanes import commit_step, lin_sum_words, term_parts, term_word
+from lighthouse_tpu_torch.ops.window_ladder import digits_w2
 
 NW = 12
 R = 1 << 384
@@ -59,7 +68,10 @@ R_INV = pow(R, -1, P)
 ONE = R % P  # the Montgomery one
 T = 2  # threads a lane
 BLOCK = 64  # threads a block
-TABLE_ENTRIES = 9  # [0..8] P
+# the forms' schedules: points of scratch a lane; the window forms'
+# doublings a window (the chain doubles once between bits)
+ENTRIES = {"window": 9, "w2": 4, "chain": 2}
+DOUBLINGS = {"window": 4, "w2": 2}
 L1_MAX = 256  # a LIN row's coefficients' L1 norm (lin_sum's bound)
 NONE = 63  # an absent second term of a MUL operand
 PROD = 6  # value index of PR0
@@ -171,13 +183,26 @@ def mul_rows(w):
 ROW_MADDS = {1: 2 * 144, 2: 5 * 144}
 
 
-def lane_products(w: int, n_windows: int) -> float:
-    """The kernel's MUL rows for one lane, in 12-word products' worth of
-    multiply-adds (288 each): the table's 4 doublings (even entries) and 3
-    additions (odd ones), then 4 doublings and an addition a window."""
-    n = {ph: len(rows) for ph, rows in MUL_PHASES.items()}
-    n_dbl, n_add = 4 + 4 * n_windows, 3 + n_windows
-    rows = n_dbl * (n["D1"] + n["D3"]) + n_add * (n["A1"] + n["A3"])
+def lane_steps(form: str, n: int, set_bits=None) -> tuple:
+    """(doublings, additions) one lane runs for n windows (`window`, `w2`)
+    or n bits (`chain`): the table's even entries by doubling, odd ones by
+    addition, then C doublings and an addition a window; the chain's n - 1
+    doublings and, in lockstep, n additions (`set_bits`: the additions of a
+    schedule that skipped the clear bits, a mean over lanes if need be)."""
+    if form == "chain":
+        return max(n - 1, 0), n if set_bits is None else set_bits
+    E = ENTRIES[form]
+    return (E - 1) // 2 + DOUBLINGS[form] * n, (E - 2) // 2 + n
+
+
+def lane_products(w: int, n: int, form: str = "window", set_bits=None) -> float:
+    """The kernel's MUL rows for one lane (`lane_steps`), in 12-word
+    products' worth of multiply-adds (288 each): window 816 a 17-window
+    lane, w2 916 a 32-digit lane, chain 1,272 a 64-bit lane in lockstep
+    (~888 on set bits only)."""
+    n_rows = {ph: len(rows) for ph, rows in MUL_PHASES.items()}
+    n_dbl, n_add = lane_steps(form, n, set_bits)
+    rows = n_dbl * (n_rows["D1"] + n_rows["D3"]) + n_add * (n_rows["A1"] + n_rows["A3"])
     return rows * ROW_MADDS[w] / ROW_MADDS[1]
 
 
@@ -255,8 +280,8 @@ class Table:
 
 def header_text() -> str:
     out = [
-        "// K1's window body on lane groups: the rows of csrc/ladder.cu's window",
-        "// kernel, generated by lighthouse_tpu_torch/ops/ladder_rows.py. Do not",
+        "// K1 on lane groups: the rows of csrc/ladder.cu's kernel and the forms'",
+        "// schedules, generated by lighthouse_tpu_torch/ops/ladder_rows.py. Do not",
         "// edit; regenerate with",
         "//     python -m lighthouse_tpu_torch.ops.ladder_rows",
         "// Table: [MUL index | LIN index | MUL rows | LIN rows | terms], u32",
@@ -275,7 +300,9 @@ def header_text() -> str:
         "",
         f"constexpr int T = {T};  // threads a lane",
         f"constexpr int BLOCK = {BLOCK};  // threads a block",
-        f"constexpr int ENTRIES = {TABLE_ENTRIES};  // the table [0..8] P",
+        "// the forms' points of scratch a lane and the window forms' doublings a window",
+        *(f"constexpr int ENTRIES_{f.upper()} = {n};" for f, n in ENTRIES.items()),
+        *(f"constexpr int DOUBLINGS_{f.upper()} = {n};" for f, n in DOUBLINGS.items()),
         f"constexpr int NONE = {NONE};  // an absent second term of a MUL operand",
         f"constexpr int MUL_INDEX = 0, LIN_INDEX = {4 * T};",
     ]
@@ -388,41 +415,85 @@ def _identity(w):
     return [0] * w + [ONE] + [0] * (w - 1) + [0] * w
 
 
-def emulate_lane(w: int, point, mags, negs, stats=None) -> list:
-    """One lane: point = 3 w Montgomery ints (X, Y, Z components), mags /
-    negs its LSB-first window digits; the kernel's steps (the table build,
-    then MSB first per window 4 doublings and one addition) -> the 3 w
-    ints of the result. `stats["mul_rows"]` counts the MUL rows run."""
+def steps(form: str, *ops):
+    """One lane's steps in the kernel's order (csrc/ladder.cu `Windowed`,
+    `Chain`), from its operands (window: magnitudes and signs, LSB-first by
+    window; w2: `digits_w2`'s digits, MSB first; chain: LSB-first bits):
+    (load, add, neg, store) -- V0..V2 <- entry `load` first (None: no
+    load), then a doubling (add None) or an addition of sign * entry `add`,
+    then entry `store` <- V0..V2 (None: no store). Entry 0 starts as the
+    identity, entry 1 as P.
+
+    window / w2: entries 2..E-1 of the table [0, E) P (even ones by doubling
+    entry d / 2, odd ones by adding P to the last), then MSB first per
+    window C doublings (the first loads the identity) and an addition of
+    sign * table[digit]: a magnitude clamped to 0..8 with its sign, or a
+    w2 digit & 3, whose 0 adds the identity entry. chain: per bit, LSB
+    first, the addend (V0..V2) plus the accumulator (entry 0), kept as the
+    accumulator where the bit is 1; the addend (entry 1) doubles between
+    bits. RCB's complete addition is symmetric in its inputs, so the
+    addend plus the accumulator has the canonical words of acc + addend."""
+    if form == "chain":
+        for i, bit in enumerate(ops[0]):
+            if i:
+                yield 1, None, False, 1
+            yield None, 0, False, 0 if int(bit) == 1 else None
+        return
+    E, C = ENTRIES[form], DOUBLINGS[form]
+    for d in range(2, E):
+        yield (None, 1, False, d) if d % 2 else (d // 2, None, False, d)
+    n = len(ops[0])
+    for j in range(n):  # MSB first
+        for k in range(C):
+            yield 0 if j == 0 and k == 0 else None, None, False, None
+        if form == "window":
+            wi = n - 1 - j
+            yield None, min(max(int(ops[0][wi]), 0), E - 1), bool(ops[1][wi]), None
+        else:
+            yield None, int(ops[0][j]) & (E - 1), False, None
+
+
+def result_entry(form: str, n: int):
+    """The entry that holds a lane's result, None for V0..V2: the chain's
+    accumulator; the identity of a window form run on no windows."""
+    return 0 if form == "chain" or n == 0 else None
+
+
+def emulate_lane(w: int, point, *ops, form: str = "window", stats=None) -> list:
+    """One lane: point = 3 w Montgomery ints (X, Y, Z components), ops its
+    operands (`steps`); the kernel's steps -> the 3 w ints of the result.
+    `stats["mul_rows"]` counts the MUL rows run."""
     g = _Group(w)
-    table = [_identity(w), list(point)]
+    ent = [_identity(w), list(point)] + [None] * (ENTRIES[form] - 2)
     g.set_point(point)
-    for d in range(2, TABLE_ENTRIES):
-        if d % 2 == 0:
-            g.set_point(table[d // 2])
+    for load, add, neg, store in steps(form, *ops):
+        if load is not None:
+            g.set_point(ent[load])
+        if add is None:
             g.double()
         else:
-            g.add(table[1], False)
-        table.append(g.point())
-    g.set_point(_identity(w))
-    for wi in range(len(mags) - 1, -1, -1):
-        for _ in range(4):
-            g.double()
-        mag = min(max(int(mags[wi]), 0), TABLE_ENTRIES - 1)
-        g.add(table[mag], bool(negs[wi]))
+            g.add(ent[add], neg)
+        if store is not None:
+            ent[store] = g.point()
     if stats is not None:
         stats["mul_rows"] = stats.get("mul_rows", 0) + g.mul_rows
-    return g.point()
+    r = result_entry(form, len(ops[0]))
+    return g.point() if r is None else list(ent[r])
 
 
-def emulate(pt, mags, negs, stats=None):
-    """`ladder.ladder(pt, mags, negs)` on the rows and phases above, lane by
-    lane on Python integers: pt (X, Y, Z) (w, 12, B) int32 words, mags /
-    negs (W, B) -> (X, Y, Z) words."""
+def emulate(pt, *operands, form: str = "window", stats=None):
+    """`ladder.ladder(pt, *operands, form=form)` on the rows, phases and
+    steps above, lane by lane on Python integers: pt (X, Y, Z) (w, 12, B)
+    int32 words; operands (mags, negs) (W, B) for `window`, the (n, B)
+    LSB-first bits for `chain` and `w2` (made into `window_ladder.digits_w2`
+    digits as the wrapper does) -> (X, Y, Z) words."""
     w, _, B = pt[0].shape
+    if form == "w2":
+        operands = (digits_w2(torch.as_tensor(operands[0])),)
     coords = [[fd.words_to_ints(c[i].t().contiguous().numpy()) for i in range(w)] for c in pt]
-    mags, negs = np.asarray(mags), np.asarray(negs)
+    ops = [np.asarray(o) for o in operands]
     res = [emulate_lane(w, [coords[c][i][lane] for c in range(3) for i in range(w)],
-                        mags[:, lane], negs[:, lane], stats) for lane in range(B)]
+                        *(o[:, lane] for o in ops), form=form, stats=stats) for lane in range(B)]
     return tuple(
         torch.from_numpy(np.stack([fd.ints_to_words([r[w * c + i] for r in res]).T
                                    for i in range(w)]).copy())

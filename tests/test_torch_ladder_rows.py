@@ -1,16 +1,23 @@
-"""K1's window body on lane groups (lighthouse_tpu_torch/ops/ladder_rows.py,
-the rows of csrc/ladder.cu's window kernel) on the CPU, in plain Python
-integers:
+"""K1 on lane groups (lighthouse_tpu_torch/ops/ladder_rows.py, the rows
+and the forms' steps of csrc/ladder.cu's kernel) on the CPU, in plain
+Python integers:
 
 * the generated header csrc/ladder_rows.cuh matches the generator;
 * the rows keep the kernel's rules (no slot read and written in a phase,
   operand sums within lin_sum's bound) and split the products evenly over
   a lane's two threads;
-* the rows, decoded from the table's words and run as the kernel's
-  threads run them (`emulate`), give the plain window ladder's words
-  exactly on G1 and G2 for 8-bit scalars and for the edge digits (zero,
-  +8, -8, the top window's carry, signs on zero digits) and identity
-  points, and run the MUL rows that `lane_products` counts for the bound;
+* the rows, decoded from the table's words and run through each form's
+  steps as the kernel's threads run them (`emulate`), give the plain
+  ladder's words exactly on G1 and G2: the window form for 8-bit scalars
+  and for the edge digits (zero, +8, -8, the top window's carry, signs on
+  zero digits) and identity points; the chain and w2 forms for 8-16-bit
+  scalars and for identity points, all-zero and all-one bits, one bit and
+  an odd bit count; each run the MUL rows that `lane_products` counts for
+  the bound, whose row counts by form are pinned;
+* the addition rows are symmetric in their two points (the chain adds the
+  accumulator to the addend) on P + Q, P + P, P + (-P) and the identity;
+* csrc/ladder.cu has one kernel body, and no source includes the retired
+  one-thread-a-lane field header;
 * the operand sum's quotient estimate holds at the new L1 bound of 256;
 * the device-side timing of `cuda_build.time_ms` refuses to run without a
   CUDA device;
@@ -18,6 +25,9 @@ integers:
   reduction row's carry folded into the next row) and G2's lazily reduced
   Karatsuba product hold at the operands' bounds.
 """
+
+import os
+import re
 
 import numpy as np
 import pytest
@@ -102,7 +112,7 @@ def test_emulated_rows_match_plain_window_ladder(w):
     mags, negs = mags.to(torch.int32), negs.to(torch.int32)
     want = ladder.ladder_plain(pt, mags, negs)
     stats = {}
-    got = lr.emulate(pt, mags, negs, stats)
+    got = lr.emulate(pt, mags, negs, stats=stats)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     # the products chip_smoke.py's bound counts are the rows the lanes ran
     rows_madds = stats["mul_rows"] * lr.ROW_MADDS[w]
@@ -116,6 +126,92 @@ def test_emulated_rows_match_plain_on_edge_digits(w):
     want = ladder.ladder_plain(pt, mags, negs)
     got = lr.emulate(pt, mags, negs)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _form_rows(pt, bits, form, w):
+    """The emulated form against the plain version, word for word; returns
+    the emulated MUL rows over lockstep `lane_products`."""
+    want = ladder.ladder_plain(pt, bits, form=form)
+    stats = {}
+    got = lr.emulate(pt, bits, form=form, stats=stats)
+    assert all(torch.equal(a, b) for a, b in zip(got, want)), form
+    n = bits.shape[0] if form == "chain" else -(-bits.shape[0] // 2)
+    return stats["mul_rows"] * lr.ROW_MADDS[w] / lr.ROW_MADDS[1], pt[0].shape[-1] * lr.lane_products(w, n, form)
+
+
+@pytest.mark.parametrize("w", [1, 2])
+@pytest.mark.parametrize("form", ["chain", "w2"])
+def test_emulated_forms_match_plain(form, w):
+    """chain and w2 through the rows on random 8-16-bit scalars, every
+    third lane the identity."""
+    rng = np.random.default_rng(20 + w)
+    n_bits = int(rng.integers(8, 17))
+    bits = torch.from_numpy(rng.integers(0, 2, (n_bits, 4)).astype(np.int32))
+    got, want = _form_rows(_points(w, 4, seed=30 + w), bits, form, w)
+    assert got == want
+
+
+@pytest.mark.parametrize("n_bits", [1, 7])
+@pytest.mark.parametrize("w", [1, 2])
+@pytest.mark.parametrize("form", ["chain", "w2"])
+def test_emulated_forms_on_edge_bits(form, w, n_bits):
+    """By lane: all-zero bits; all-one bits on the identity; all-one
+    bits; random bits; all-zero bits on the identity; the top bit alone.
+    One bit runs the chain without a doubling; seven give w2 a padded top
+    digit."""
+    bits = np.zeros((n_bits, 6), np.int32)
+    bits[:, 1] = bits[:, 2] = 1
+    bits[:, 3] = np.random.default_rng(n_bits).integers(0, 2, n_bits)
+    bits[-1, 5] = 1
+    got, want = _form_rows(_points(w, 6, seed=40 + w), torch.from_numpy(bits), form, w)
+    assert got == want
+
+
+@pytest.mark.parametrize("form, n, set_bits, rows", [
+    ("window", 17, None, 816), ("w2", 32, None, 916), ("chain", 64, None, 1272), ("chain", 64, 32, 888)])
+def test_lane_products_by_form(form, n, set_bits, rows):
+    """A 64-bit scalar's MUL rows a lane: window 17 windows, w2 32 digits
+    (65 doublings, 33 additions), the chain in lockstep (63 x 8 + 64 x 12)
+    and on its set bits alone; a G2 row is 2.5 products' multiply-adds."""
+    assert lr.lane_products(1, n, form, set_bits) == rows
+    assert lr.lane_products(2, n, form, set_bits) == 2.5 * rows
+
+
+@pytest.mark.parametrize("w", [1, 2])
+def test_addition_rows_are_symmetric(w):
+    """add(a, b) and add(b, a) through the rows give the same words for
+    P + Q, P + P, P + (-P), P + O and O + O, the chain's addend-first
+    order included."""
+    pt = _points(w, 3, seed=50 + w)  # lanes 0, 2 points, lane 1 the identity
+    lanes = [[int(x) for c in pt for i in range(w) for x in
+              fd.words_to_ints(c[i, :, [lane]].t().contiguous().numpy())] for lane in range(3)]
+    P_, O, Q = lanes
+    negP = P_[:w] + [(-y) % P for y in P_[w:2 * w]] + P_[2 * w:]
+    for a, b in ((P_, Q), (P_, P_), (P_, negP), (P_, O), (O, O)):
+        out = []
+        for x, y in ((a, b), (b, a)):
+            g = lr._Group(w)
+            g.set_point(x)
+            g.add(y, False)
+            out.append(g.point())
+        assert out[0] == out[1]
+
+
+def test_one_kernel_body_and_no_retired_header():
+    """csrc/ladder.cu has one kernel, templated on the form's schedule and
+    launched by all six C entries, and no noinline field call; no source of
+    the port includes bls12_381.cuh, which is gone."""
+    with open(os.path.join(cuda_build.CSRC, "ladder.cu")) as f:
+        text = f.read()
+    assert len(re.findall(r"__global__", text)) == 1 and "__noinline__" not in text
+    assert len(re.findall(r"ladder_kernel<W, S><<<", text)) == 1
+    assert len(re.findall(r'extern "C" int lh_ladder_g[12]\w*\(', text)) == 6
+    assert not os.path.exists(os.path.join(cuda_build.CSRC, "bls12_381.cuh"))
+    for d, _, files in os.walk(cuda_build.PKG):
+        for name in files:
+            if name.endswith((".cu", ".cuh", ".py", ".c", ".h")):
+                with open(os.path.join(d, name)) as f:
+                    assert '#include "bls12_381.cuh"' not in f.read(), name
 
 
 @pytest.mark.parametrize("kind", ["max", "min", "mixed"])
@@ -196,9 +292,6 @@ def test_lazy_karatsuba_model():
 def test_kernel_p_squared_constant():
     """ladder.cu's constants of the lazy product: p^2, 2 p^2 and 2p, word
     for word."""
-    import os
-    import re
-
     text = open(os.path.join(cuda_build.CSRC, "ladder.cu")).read()
     for name, want in (("P2_W", P * P), ("P2X2_W", 2 * P * P)):
         body = text[text.index(f"{name}[2 * NW] = {{"):]

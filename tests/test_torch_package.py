@@ -70,7 +70,10 @@ def test_every_kernel_has_a_source_and_a_counter():
     for source, entries in cuda_build.SOURCES.items():
         assert os.path.exists(os.path.join(cuda_build.CSRC, f"{source}.cu"))
         assert all(e.startswith("lh_") for e in entries)
-    assert os.path.exists(os.path.join(cuda_build.CSRC, cuda_build.HEADER))
+    for name in os.listdir(cuda_build.CSRC):  # every header a source includes is there
+        with open(os.path.join(cuda_build.CSRC, name)) as f:
+            for header in re.findall(r'#include "([^"]+)"', f.read()):
+                assert os.path.exists(os.path.join(cuda_build.CSRC, header)), (name, header)
     assert set(cuda_build.LAUNCHES) == {
         "ladder_g1", "ladder_g2", "miller", "fold_final_exp",
         "lane_sum_g1", "lane_sum_g2", "to_affine_g1", "to_affine_g2",

@@ -9,10 +9,10 @@ non-zero without its result line:
  1. the card's name and power limit (nvidia-smi, printed as is);
  2. build every CUDA kernel from lighthouse_tpu_torch/csrc (one nvcc per
     source, in parallel), with what ptxas reports per kernel (K1's six
-    instantiations, which must have no stack frame and no spills, and the
-    helpers on lines of their own: registers, stack frame, spills, shared
-    memory) and the dynamic shared memory of the lane-group kernels K2 and
-    K3;
+    instantiations, which must have no stack frame and no spills, the
+    helpers and the subgroup check on lines of their own: registers, stack
+    frame, spills, shared memory) and the dynamic shared memory of the
+    lane-group kernels K2 and K3;
  2b. the register-resident Fp product of K1's window body, K2 and K3 alone
     (ops/fp_product.py): one thread's dependent chain (latency) and every
     SM full of chains (product rate), both exact against Python integers;
@@ -21,7 +21,10 @@ non-zero without its result line:
  3. one mainnet slot of attestations -- 64 committees x 480 single-key
     sets, every key in an on-card table of 32,768 validators -- and a flat
     batch of 1,024 sets with distinct messages and 1-4 untagged keys;
-    the signature subgroup policy runs once per signature (memoized);
+    every signature's subgroup memo filled on the card
+    (gpu_backend.check_signature_subgroups: the Jacobian entry, then the
+    subgroup kernel), the host's check on 512 sampled signatures agreeing,
+    the card's and the host's us a signature;
  4. every kernel against its plain PyTorch version, on the card, on the
     inputs the main path gives it (the signatures' and the point path's
     keys' Jacobian words through the Jacobian entry of the to-affine
@@ -35,6 +38,14 @@ non-zero without its result line:
     helpers on an edge batch (Jacobian Z != 1, Z = 1, identity and padding
     lanes; to_affine on Z = 1, identity and general lanes; the fold on
     P + P, P + (-P) and identity lanes, in one launch and in two);
+ 4b. the subgroup kernel against its plain version as exact bools, on a
+    1,024-lane slice of the slot and on an edge batch (Z != 1 signatures,
+    their negations and rescaled copies, SSWU points before cofactor
+    clearing, a point of order 13 on the twist, its negation and double, a
+    subgroup point plus it, the point at infinity, masked lanes), both also
+    against ref_curve; its device time at the slot's 30,720 lanes beside
+    its bound (the products it runs there), the JAX form's bound and the
+    bound at the product rate measured in 2b;
  5. end to end through bls.api.verify_signature_sets(device="cuda"): the
     slot (grouped, indexed) and the flat batch verify True, a forged
     signature False, 4 sets cross-checked with the ref backend; launch
@@ -42,6 +53,17 @@ non-zero without its result line:
     (median of the timed runs); the slot once more with its signatures
     normalised to Z = 1 outside the timed region, as decompressed gossip
     carries them, and the decompression of 512 signatures timed alone;
+ 5b. the operation pool's gossip ingest (bench_oppool.py's phases, BASELINE
+    config #4) at the slot's size: 30,720 attestations, attestation i of
+    committee i % 64, compressed outside the timed region; timed:
+    decompression, check_signature_subgroups, the streamed
+    verify_signature_set_batches over 30 batches of 1,024 (seed 7, consumer
+    "oppool", every batch True), per-committee aggregation (two committees
+    held against H(m) times their keys' sum); the same 30 batches one call at
+    a time, and overlap = (host + device - streamed wall) / host; one forged
+    signature in batch 17 fails that batch alone; the card's fixed cost of
+    one batch dispatch (a 4-set batch's device time, p50 of 5) beside the
+    value in common/device_attribution.py;
  6. K1's chain and 2-bit window forms against their plain versions on
     the slot's and the flat batch's ladder inputs, their bounds from the rows a lane runs (the
     chain's on set bits only and in lockstep) and each form's device time
@@ -92,6 +114,15 @@ BATCH_KERNELS = ("ladder_g1", "ladder_g2", "miller", "fold_final_exp",
                  "jacobian_to_affine_g2")
 POINT_PATH_KERNELS = ("jacobian_to_affine_g1",)
 
+# a point of order 13 on the twist E'(Fp2), affine (x0, x1, y0, y1): [h2 r / 169]
+# of an SSWU point (tests/test_torch_subgroup.py)
+ORDER13 = (
+    2836965131823123410263967203666700228366617764832011880822917003009180422710328672880982742971667089130324726186765,
+    1493440553737758395317049093622249216134088697031662027075306454103180847581429911027814653483157864376196648859787,
+    1883875369676256757931724051005444337857183088130947247092686437224487482716351955195424734420382938063040663037738,
+    3553509992304783018100897154919395512649485085278091884435216652014597959035275330737888638199572964083532338401018,
+)
+
 N_VALIDATORS = 32_768
 N_COMMITTEES = 64
 COMMITTEE = 480
@@ -117,8 +148,10 @@ def main() -> int:
     from lighthouse_tpu_torch.ops import batch_verify as bv
     from lighthouse_tpu_torch.ops import cuda_build, curve, curve_kernels, field as fd
     from lighthouse_tpu_torch.ops import final_exp, fp_product, lanes, ladder, ladder_rows, miller
-    from lighthouse_tpu_torch.ops import mma_probe
+    from lighthouse_tpu_torch.ops import mma_probe, subgroup
     from lighthouse_tpu_torch.ops import window_ladder
+    from lighthouse_tpu_torch.bls.hash_to_curve import hash_to_field_fp2, iso_map, map_to_curve_sswu
+    from lighthouse_tpu_torch.common import device_attribution
     from lighthouse_tpu_torch.crypto.ref_curve import G1 as RG1
     from lighthouse_tpu_torch.crypto.ref_curve import G2 as RG2
 
@@ -171,6 +204,16 @@ def main() -> int:
     emit("helpers_ptxas", kernels=helpers_ptxas,
          stack_frames=sorted(n for n, r in helpers_ptxas.items() if r["stack_bytes"]))
     assert len(helpers_ptxas) == 6, "helpers: expected 2 fold and 4 affine kernels"
+    # the subgroup check: one thread a lane, its slot file in local memory
+    # (a stack frame, reported, not refused)
+    subgroup_ptxas = {
+        name: dict(rec, **ptxas["subgroup"]["functions"].get(name, {}))
+        for name, rec in ptxas["subgroup"]["kernels"].items()
+    }
+    emit("subgroup_ptxas", kernels=subgroup_ptxas,
+         spill_store_bytes=ptxas["subgroup"]["spill_store_bytes"],
+         spill_load_bytes=ptxas["subgroup"]["spill_load_bytes"])
+    assert len(subgroup_ptxas) == 1, "subgroup: expected 1 kernel"
 
     # ---------------------------------------- 2b. the Fp product alone
     prod = fp_product.measure(dev)
@@ -192,14 +235,25 @@ def main() -> int:
     t1 = time.perf_counter()
     flat = T.flat_sets(pubkeys, N_FLAT, max_keys=4, seed=2)
     t2 = time.perf_counter()
-    assert all(api.signature_ok(s.signature) for s in slot)
+    # the signature subgroup policy on the card, every signature's memo
+    # filled; the host's check on a sample of 512 must agree
+    slot_ok = gpu_backend.check_signature_subgroups([s.signature for s in slot], device="cuda")
     t3 = time.perf_counter()
-    assert all(api.signature_ok(s.signature) for s in flat)
+    flat_ok = gpu_backend.check_signature_subgroups([s.signature for s in flat], device="cuda")
     t4 = time.perf_counter()
+    assert all(slot_ok) and all(flat_ok), "data: a signature failed the card's subgroup check"
+    assert all(api.signature_ok(s.signature) for s in slot + flat)
+    sample = np.random.default_rng(8).choice(len(slot), 512, replace=False)
+    t5 = time.perf_counter()
+    host_ok = [RG2.in_subgroup(slot[i].signature.point) for i in sample]
+    t6 = time.perf_counter()
+    assert host_ok == [slot_ok[i] for i in sample], "data: card and host subgroup checks disagree"
     emit("data", slot_sets=len(slot), flat_sets=len(flat), validators=table.count,
          slot_build_s=t1 - t0, flat_build_s=t2 - t1,
          slot_subgroup_s=t3 - t2, flat_subgroup_s=t4 - t3,
-         slot_subgroup_us_per_sig=(t3 - t2) / len(slot) * 1e6)
+         slot_subgroup_card_us_per_sig=(t3 - t2) / len(slot) * 1e6,
+         host_subgroup_sample=len(sample), host_agrees=True,
+         slot_subgroup_host_us_per_sig=(t6 - t5) / len(sample) * 1e6)
 
     # ------------------------------- 4. kernels against plain versions
     def stage_inputs(sets, seed):
@@ -412,6 +466,57 @@ def main() -> int:
     records["helper_edge"] = helper_edge
     emit("helpers_edge", **helper_edge)
 
+    # ------------------------------------------ 4b. the subgroup check
+    # the kernel against its plain version as exact bools, and against
+    # ref_curve on the edge lanes; its device time on the slot's 30,720
+    # lanes, against the bound of the products it runs there
+    def sig_lanes(points):
+        """Jacobian points -> the kernel's inputs through the Jacobian entry:
+        affine (x, y) lanes and the mask (Z = 0 lanes masked)."""
+        jac = tuple(bv._lanes(gpu_backend._to_device(c, dev), dev)
+                    for c in gpu_backend._pack_jacobian(points, 2))
+        x, y, inf = curve_kernels.jacobian_to_affine(jac)
+        return x, y, ~inf
+
+    # a 1,024-lane slice of the slot, then the edge batch: slot signatures
+    # (Z != 1), their negations and copies with another Z, SSWU points
+    # before cofactor clearing, a point of order 13 on the twist, its
+    # negation and double, a subgroup point plus it, the point at infinity
+    # (Z = 0: masked by the Jacobian entry), and SSWU points under an
+    # explicit mask; one plain run for both (its time is launches, not lanes)
+    q13 = RG2.from_affine(((ORDER13[0], ORDER13[1]), (ORDER13[2], ORDER13[3])))
+    sswu = [RG2.from_affine(iso_map(map_to_curve_sswu(u))) for u in hash_to_field_fp2(b"edge", 8)]
+    live = [s.signature.point for s in slot[:8]]
+    rescaled = [(RG2.F.mul((9, 0), X), RG2.F.mul((27, 0), Y), RG2.F.mul((3, 0), Z)) for X, Y, Z in live[:4]]
+    edge_pts = (live + [RG2.neg(p) for p in live] + rescaled + sswu[:4]
+                + [q13, RG2.neg(q13), RG2.add(q13, q13), RG2.add(live[0], q13)]
+                + [RG2.infinity] * 2 + sswu[4:])
+    SLICE_SG = 1_024
+    x_s, y_s, m_s = sig_lanes([s.signature.point for s in slot[:SLICE_SG]] + edge_pts)
+    m_s[-4:] = False
+    rec_slice = hold("subgroup_g2", lambda: subgroup.g2_in_subgroup(x_s, y_s, m_s),
+                     lambda: subgroup.g2_in_subgroup_plain(x_s, y_s, m_s), nb(x_s, y_s, m_s),
+                     products=subgroup.kernel_products(int(m_s.sum())))
+    out_k = subgroup.g2_in_subgroup(x_s, y_s, m_s).tolist()
+    want = [RG2.in_subgroup(p) for p in edge_pts[:-4]] + [True] * 4
+    assert all(out_k[:SLICE_SG]), "subgroup: a slot signature rejected"
+    assert out_k[SLICE_SG:] == want and want.count(False) == 8, f"subgroup: edge batch {out_k[SLICE_SG:]}"
+    x_t, y_t, m_t = sig_lanes([s.signature.point for s in slot])
+    n_t = int(m_t.sum())
+    t_ops = subgroup.kernel_products(n_t) * IMAD_PER_FP_PRODUCT / INT_OPS_PER_S * 1e3
+    records["subgroup"] = {
+        "ms": cuda_build.time_ms(lambda: subgroup.g2_in_subgroup(x_t, y_t, m_t)),
+        "lanes": n_t, "slice": dict(rec_slice, lanes=SLICE_SG + len(edge_pts)), "plain_ms": rec_slice["plain_ms"],
+        "max_abs_err": rec_slice["max_abs_err"],
+        "bound_ms": max(t_ops, nb(x_t, y_t, m_t) / HBM_BYTES_PER_S * 1e3), "bound_by": "operations",
+        "bound_jax_form_ms": subgroup.jax_form_products(n_t) * IMAD_PER_FP_PRODUCT / INT_OPS_PER_S * 1e3,
+        "bound_measured_rate_ms": subgroup.kernel_products(n_t) / prod["products_per_s"] * 1e3,
+        "fp_products": subgroup.kernel_products(n_t),
+        "edge": {"lanes": len(edge_pts), "rejected": want.count(False), "masked": 6, "held": True,
+                 "agrees_with_ref_curve": True},
+    }
+    emit("subgroup", **records["subgroup"])
+
     # --------------------------------------------------- 5. end to end
     def e2e(label, sets, seed, probes=True, kernels=BATCH_KERNELS):
         cuda_build.reset_launches()
@@ -475,6 +580,88 @@ def main() -> int:
         assert d.point == s.signature.point, "decompression: another point"
     emit("decompress", signatures=len(raw), normalise_s=normalise_s,
          slot_decompress_us_per_sig=decompress_s / len(raw) * 1e6, z_one=True)
+
+    # ---------------------- 5b. operation-pool gossip ingest (config #4)
+    # bench_oppool.py's phases on the port at the slot's size: 30,720
+    # attestations of 64 committees, attestation i of committee i % 64,
+    # compressed outside the timed region; timed: decompression, the card's
+    # subgroup check, the streamed RLC verify of 30 batches of 1,024 (64
+    # messages each), per-committee aggregation
+    N_ING = N_COMMITTEES * COMMITTEE
+    CHUNK = 1_024
+    order = [(i % N_COMMITTEES) * COMMITTEE + i // N_COMMITTEES for i in range(N_ING)]
+    atts = [slot[k] for k in order]
+    t0 = time.perf_counter()
+    raw = [s.signature.to_bytes() for s in atts]
+    compress_s = time.perf_counter() - t0
+    cuda_build.reset_launches()
+    gpu_backend.CALL_COUNTS.update(batch=0, individual=0)
+    t0 = time.perf_counter()
+    sigs = [api.Signature.from_bytes(b) for b in raw]
+    t1 = time.perf_counter()
+    sub_ok = gpu_backend.check_signature_subgroups(sigs, device="cuda")
+    t2 = time.perf_counter()
+    batches = [[api.SignatureSet(sigs[i], atts[i].pubkeys, atts[i].message)
+                for i in range(b, min(b + CHUNK, N_ING))] for b in range(0, N_ING, CHUNK)]
+    streamed = api.verify_signature_set_batches(batches, seed=7, device="cuda", consumer="oppool")
+    t3 = time.perf_counter()
+    agg = [RG2.infinity] * N_COMMITTEES
+    for i, sig in enumerate(sigs):
+        agg[i % N_COMMITTEES] = RG2.add(agg[i % N_COMMITTEES], sig.point)
+    t4 = time.perf_counter()
+    ingest_launches = dict(cuda_build.LAUNCHES)
+    stream_stats = dict(gpu_backend.LAST_STREAM_STATS)
+    assert all(sub_ok) and len(sub_ok) == N_ING, "ingest: a signature failed the subgroup check"
+    assert streamed == [True] * len(batches) and len(batches) == 30, f"ingest: {streamed}"
+    assert gpu_backend.CALL_COUNTS["batch"] == 30, gpu_backend.CALL_COUNTS
+    missing = [k for k in BATCH_KERNELS + ("subgroup_g2",) if ingest_launches[k] == 0]
+    assert not missing, f"ingest: the path launched no {missing}"
+    # committee g's aggregate is H_g times the sum of its secret keys
+    for g in (0, N_COMMITTEES - 1):
+        keys = sum(v + 1 for v in range(g * COMMITTEE, (g + 1) * COMMITTEE))
+        h = T._h(slot[g * COMMITTEE].message)
+        assert RG2.to_affine(agg[g]) == RG2.to_affine(RG2.mul_scalar(h, keys)), f"ingest: aggregate {g}"
+    # the same batches one call at a time: the host and device times the
+    # stream overlaps
+    walls, host_ms, device_ms = [], [], []
+    for bi, b in enumerate(batches):
+        tb = time.perf_counter()
+        assert api.verify_signature_sets(b, seed=7 + bi, device="cuda", consumer="oppool")
+        walls.append(time.perf_counter() - tb)
+        host_ms.append(gpu_backend.LAST_HOST_STATS["host_ms"])
+        device_ms.append(gpu_backend.LAST_HOST_STATS["device_ms"])
+    host_sum, device_sum = sum(host_ms), sum(device_ms)
+    overlap = (host_sum + device_sum - stream_stats["wall_ms"]) / host_sum
+    assert stream_stats["wall_ms"] < host_sum + device_sum, "ingest: the stream did not overlap"
+    # one forged signature in batch 17: that batch alone fails
+    bad = list(batches)
+    bad[17] = T.forge(batches[17], 300)
+    bad_verdicts = api.verify_signature_set_batches(bad, seed=7, device="cuda", consumer="oppool")
+    assert [i for i, v in enumerate(bad_verdicts) if not v] == [17], bad_verdicts
+    bad_stats = dict(gpu_backend.LAST_STREAM_STATS)
+    # the card's fixed cost of one batch dispatch: the smallest bucket's
+    # device time (4 sets), beside a 1,024-set ingest batch's
+    small = []
+    for r in range(REPS):
+        assert api.verify_signature_sets(slot[:4], seed=60 + r, device="cuda", consumer="bench")
+        small.append(gpu_backend.LAST_HOST_STATS["device_ms"])
+    fixed_ms = statistics.median(small)
+    total_s = t4 - t0
+    records["ingest"] = {
+        "attestations": N_ING, "committees": N_COMMITTEES, "batch": CHUNK, "batches": len(batches),
+        "compress_s": compress_s,
+        "phase_s": {"decompress": t1 - t0, "subgroup": t2 - t1, "verify": t3 - t2, "aggregate": t4 - t3},
+        "total_s": total_s, "sigs_per_s": N_ING / total_s,
+        "stream": stream_stats, "unstreamed_host_ms": host_sum, "unstreamed_device_ms": device_sum,
+        "unstreamed_wall_ms": sum(walls) * 1e3, "overlap": overlap,
+        "unstreamed_p50": {"host_ms": statistics.median(host_ms), "device_ms": statistics.median(device_ms),
+                           "wall_ms": statistics.median(walls) * 1e3},
+        "forged_batch": 17, "forged_verdicts_false": [17], "forged_stream": bad_stats,
+        "fixed_dispatch_ms": fixed_ms, "fixed_dispatch_runs_ms": small,
+        "fixed_device_cost_ms_in_code": device_attribution.FIXED_DEVICE_COST_MS,
+        "launches": ingest_launches,
+    }
+    emit("ingest", **records["ingest"])
 
     # ------------------------------ 6. K1's chain and 2-bit window forms
     # the bound counts the products of the rows a lane runs
@@ -699,6 +886,10 @@ def main() -> int:
                            "per-set entry at the slot's sets; held and plain_ms on a 1,024-set slice"),
         "mma_probe_i8": (csrc + "mma_probe.cu", "scripts/probe_mxu_forms.py:67", None),
         "mma_probe_bf16": (csrc + "mma_probe.cu", "scripts/probe_mxu_forms.py:67", None),
+        "subgroup_g2": (csrc + "subgroup.cu", "lighthouse_tpu/ops/batch_verify.py:428",
+                        "XLA on the TPU (a lax.scan, no Pallas kernel); ms at the slot's 30,720 "
+                        "lanes; held and plain_ms on a 1,024-lane slice of the slot plus a 34-lane "
+                        "edge batch; launches from the ingest run"),
     }
     kernels = []
     for name, (source, replaces, note) in meta.items():
@@ -716,6 +907,9 @@ def main() -> int:
         elif name == "pair_final_exp":
             rec, launches = records["per_set"][name], per_set_launches[name]
             entry["slice"] = records["per_set"]["pair_final_exp_slice"]
+        elif name == "subgroup_g2":
+            rec, launches = records["subgroup"], ingest_launches[name]
+            entry.update({k: rec[k] for k in ("lanes", "bound_jax_form_ms", "bound_measured_rate_ms")})
         else:
             rec, launches = records["probe"][name], probe_launches[name]
         entry.update({

@@ -26,6 +26,25 @@ signature policy per set (a bad signature is False for its set and never
 reaches the device), then the live sets laid out flat, unpadded, in one
 device call.
 
+`verify_signature_set_batches_gpu` streams several batches
+(`tpu_backend.verify_signature_set_batches_tpu`): a batch's launch
+(`_launch`) returns its verdict as a device tensor that nobody has read,
+its copy to the host is queued right behind its kernels (`_read_later`),
+and the loop marshals and launches batch N+1 before it waits for batch
+N's copy. Nothing between the two waits for the device: the batch's
+arrays reach the card through pinned staging buffers, non-blocking (an
+upload from pageable memory would wait for the queued kernels), and the
+kernels' constants are uploaded once and cached.
+
+`check_signature_subgroups` fills the subgroup memo of a list of
+signatures with two launches: the Jacobian entry of the to-affine kernel,
+then the subgroup kernel (`ops/subgroup.py`), the device form of
+`bench_oppool.py`'s phase 2.
+
+Each batch is attributed to its consumer (`common/device_attribution.py`:
+lanes, padding, device seconds) and traced (`common/tracing.py`: the
+reference's `verify/*` spans).
+
 `device="cuda"` runs the CUDA kernels and raises when there is no GPU;
 `device="cpu"` runs their plain PyTorch versions (the tests).
 """
@@ -38,11 +57,17 @@ import torch
 
 from lighthouse_tpu_torch.bls.api import signature_ok
 from lighthouse_tpu_torch.bls.hash_to_curve import hash_to_g2
+from lighthouse_tpu_torch.common import device_attribution as attribution
+from lighthouse_tpu_torch.common.tracing import span
 from lighthouse_tpu_torch.crypto.ref_curve import G2 as G2_GROUP
-from lighthouse_tpu_torch.ops import batch_verify, field as fd
+from lighthouse_tpu_torch.ops import batch_verify, curve_kernels, field as fd, subgroup
 
 # host/device split of the last dispatched batch
 LAST_HOST_STATS: dict = {}
+
+# the last verify_signature_set_batches_gpu call: batches, dispatched,
+# host_marshal_ms, wall_ms
+LAST_STREAM_STATS: dict = {}
 
 # device calls dispatched: RLC batches and per-set fallbacks
 CALL_COUNTS = {"batch": 0, "individual": 0}
@@ -221,23 +246,25 @@ def _marshal_grouped(sets, groups) -> _Marshalled:
     m.grouped, m.n_groups = True, G
     m.s_bucket = g_b * sg_b
     m.k_bucket = _bucket(max(len(s.pubkeys) for s in sets), 1)
-    group_msgs = [_msg_entry(sets[ix[0]].message) for _, ix in groups]
-    order: list = []
-    for _, ix in groups:
-        order += list(ix) + [None] * (sg_b - len(ix))
-    order += [None] * ((g_b - G) * sg_b)
-    sigs = [None if i is None else sets[i].signature.point for i in order]
+    with span("verify/marshal/points"):
+        group_msgs = [_msg_entry(sets[ix[0]].message) for _, ix in groups]
+        order: list = []
+        for _, ix in groups:
+            order += list(ix) + [None] * (sg_b - len(ix))
+        order += [None] * ((g_b - G) * sg_b)
+        sigs = [None if i is None else sets[i].signature.point for i in order]
     t1 = time.perf_counter()
-    m.group_mask = np.array([True] * G + [False] * (g_b - G), dtype=bool)
-    m.set_mask = np.array([i is not None for i in order], dtype=bool).reshape(g_b, sg_b)
-    _pack_keys(m, sets, order)
-    m.key_mask = m.key_mask.reshape(g_b, sg_b, m.k_bucket)
-    if m.indices is not None:
-        m.indices = m.indices.reshape(g_b, sg_b, m.k_bucket)
-    else:
-        m.pubkeys = tuple(c.reshape(g_b, sg_b, m.k_bucket, 1, fd.NW) for c in m.pubkeys)
-    m.msgs = _pack_msgs(group_msgs, g_b - G)
-    m.sigs = tuple(c.reshape(g_b, sg_b, 2, fd.NW) for c in _pack_jacobian(sigs, 2))
+    with span("verify/marshal/pack"):
+        m.group_mask = np.array([True] * G + [False] * (g_b - G), dtype=bool)
+        m.set_mask = np.array([i is not None for i in order], dtype=bool).reshape(g_b, sg_b)
+        _pack_keys(m, sets, order)
+        m.key_mask = m.key_mask.reshape(g_b, sg_b, m.k_bucket)
+        if m.indices is not None:
+            m.indices = m.indices.reshape(g_b, sg_b, m.k_bucket)
+        else:
+            m.pubkeys = tuple(c.reshape(g_b, sg_b, m.k_bucket, 1, fd.NW) for c in m.pubkeys)
+        m.msgs = _pack_msgs(group_msgs, g_b - G)
+        m.sigs = tuple(c.reshape(g_b, sg_b, 2, fd.NW) for c in _pack_jacobian(sigs, 2))
     t2 = time.perf_counter()
     m.timings = {"points_ms": (t1 - t0) * 1e3, "pack_ms": (t2 - t1) * 1e3}
     return m
@@ -253,48 +280,22 @@ def _marshal_flat(sets, pow2: bool = True) -> _Marshalled:
     m.s_bucket = _bucket(n_sets, 4) if pow2 else n_sets
     m.k_bucket = _bucket(max(len(s.pubkeys) for s in sets), 1)
     pad = [None] * (m.s_bucket - n_sets)
-    msgs = [_msg_entry(s.message) for s in sets]
-    sigs = [s.signature.point for s in sets] + pad
+    with span("verify/marshal/points"):
+        msgs = [_msg_entry(s.message) for s in sets]
+        sigs = [s.signature.point for s in sets] + pad
     t1 = time.perf_counter()
-    order = list(range(n_sets)) + pad
-    m.set_mask = np.array([i is not None for i in order], dtype=bool)
-    _pack_keys(m, sets, order)
-    m.msgs = _pack_msgs(msgs, len(pad))
-    m.sigs = _pack_jacobian(sigs, 2)
+    with span("verify/marshal/pack"):
+        order = list(range(n_sets)) + pad
+        m.set_mask = np.array([i is not None for i in order], dtype=bool)
+        _pack_keys(m, sets, order)
+        m.msgs = _pack_msgs(msgs, len(pad))
+        m.sigs = _pack_jacobian(sigs, 2)
     t2 = time.perf_counter()
     m.timings = {"points_ms": (t1 - t0) * 1e3, "pack_ms": (t2 - t1) * 1e3}
     return m
 
 
 # ---------------------------------------------------------------- dispatch
-
-
-def _pubkeys(m, device):
-    """The batch's key words: affine (x, y) gathered from its table on
-    `device`, or the Jacobian (X, Y, Z) plain words of the point path."""
-    if m.table is None:
-        return m.pubkeys
-    if m.table.device != device:
-        raise ValueError(f"pubkey table on {m.table.device}, batch on {device}")
-    return m.table.gather(m.indices)
-
-
-def _dispatch(m, rand_bits, device, ladder="window") -> bool:
-    """Run one marshalled batch on `device`; returns the verdict."""
-    CALL_COUNTS["batch"] += 1
-    pubkeys = _pubkeys(m, device)
-    if m.grouped:
-        ok = batch_verify.verify_signature_sets_grouped(
-            m.msgs, m.sigs, pubkeys, m.key_mask,
-            rand_bits.reshape(m.set_mask.shape + (batch_verify.RAND_BITS,)),
-            m.set_mask, m.group_mask, device=device, ladder=ladder,
-        )
-    else:
-        ok = batch_verify.verify_signature_sets(
-            m.msgs, m.sigs, pubkeys, m.key_mask, rand_bits, m.set_mask,
-            device=device, ladder=ladder,
-        )
-    return bool(ok)
 
 
 def resolve_device(device) -> torch.device:
@@ -304,6 +305,73 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def _to_device(a, device: torch.device) -> torch.Tensor:
+    """A host array on `device`: on the CPU as it is; on the card through a
+    pinned staging copy, non-blocking, so the host goes on while the card
+    still runs the queued kernels (a copy from pageable memory waits for
+    them)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _pubkeys(m, device):
+    """The batch's key words on `device`: affine (x, y) gathered from its
+    table, or the Jacobian (X, Y, Z) plain words of the point path."""
+    if m.table is None:
+        return tuple(_to_device(c, device) for c in m.pubkeys)
+    if m.table.device != device:
+        raise ValueError(f"pubkey table on {m.table.device}, batch on {device}")
+    return m.table.gather(_to_device(m.indices, device))
+
+
+def _launch(m, rand_bits, device, ladder="window") -> torch.Tensor:
+    """Upload one marshalled batch and launch its kernels on `device`;
+    returns the verdict as a 0-d bool tensor on the device, unread: nothing
+    here waits for the device."""
+    CALL_COUNTS["batch"] += 1
+    msgs = tuple(_to_device(c, device) for c in m.msgs)
+    sigs = tuple(_to_device(c, device) for c in m.sigs)
+    pubkeys = _pubkeys(m, device)
+    key_mask = _to_device(m.key_mask, device)
+    set_mask = _to_device(m.set_mask, device)
+    if m.grouped:
+        bits = _to_device(rand_bits.reshape(m.set_mask.shape + (batch_verify.RAND_BITS,)), device)
+        return batch_verify.verify_signature_sets_grouped(
+            msgs, sigs, pubkeys, key_mask, bits, set_mask,
+            _to_device(m.group_mask, device), device=device, ladder=ladder,
+        )
+    return batch_verify.verify_signature_sets(
+        msgs, sigs, pubkeys, key_mask, _to_device(rand_bits, device), set_mask,
+        device=device, ladder=ladder,
+    )
+
+
+def _force(ok: torch.Tensor) -> bool:
+    """Read a launched batch's verdict: waits for its kernels."""
+    return bool(ok)
+
+
+def _read_later(ok: torch.Tensor):
+    """Queue the copy of a launched verdict to the host right behind its
+    batch's kernels, and return the call that waits for that copy alone.
+    Reading the device tensor itself later would queue its copy behind
+    every batch launched since, and wait for them too."""
+    if ok.device.type != "cuda":
+        return lambda: _force(ok)
+    host = torch.empty((), dtype=torch.bool, pin_memory=True)
+    host.copy_(ok, non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record()
+
+    def read() -> bool:
+        copied.synchronize()
+        return _force(host)
+
+    return read
 
 
 def _record_stats(n_sets, m, t_start, t_subgroup, t_marshal, t_end, individual) -> None:
@@ -324,40 +392,129 @@ def _record_stats(n_sets, m, t_start, t_subgroup, t_marshal, t_end, individual) 
     )
 
 
+def _policy_ok(sets) -> bool:
+    with span("verify/subgroup_check", n_sets=len(sets)):
+        return all(signature_ok(s.signature) for s in sets)
+
+
+def _marshal_batch(sets, seed):
+    with span("verify/marshal", n_sets=len(sets)):
+        m = _marshal(sets)
+    with span("verify/rlc_sample"):
+        rand_bits = _scalar_bits(_rlc_scalars(m.s_bucket, seed))
+    return m, rand_bits
+
+
 def verify_signature_sets_gpu(
-    sets, seed: int | None = None, device="cuda", ladder: str = "window"
+    sets, seed: int | None = None, device="cuda", ladder: str = "window", consumer=None
 ) -> bool:
     dev = resolve_device(device)
     t_start = time.perf_counter()
-    if not all(signature_ok(s.signature) for s in sets):
+    if not _policy_ok(sets):
         return False
     t_subgroup = time.perf_counter()
-    m = _marshal(sets)
-    rand_bits = _scalar_bits(_rlc_scalars(m.s_bucket, seed))
+    m, rand_bits = _marshal_batch(sets, seed)
     t_marshal = time.perf_counter()
-    result = _dispatch(m, rand_bits, dev, ladder)
-    _record_stats(len(sets), m, t_start, t_subgroup, t_marshal, time.perf_counter(), False)
+    with span("verify/device", s_bucket=m.s_bucket, grouped=bool(m.grouped),
+              indexed=m.table is not None):
+        result = _force(_launch(m, rand_bits, dev, ladder))
+    t_end = time.perf_counter()
+    attribution.note_batch(consumer, "bls", lanes=m.s_bucket, live=len(sets),
+                           duration_s=t_end - t_marshal)
+    _record_stats(len(sets), m, t_start, t_subgroup, t_marshal, t_end, False)
     return result
 
 
-def verify_signature_sets_gpu_individual(sets, device="cuda") -> list:
+def verify_signature_sets_gpu_individual(sets, device="cuda", consumer=None) -> list:
     """Per-set verdicts in one device call: False for a set whose signature
     fails the policy (infinity, not in the subgroup) without device work,
     the pairing check of each other set on `device`."""
     dev = resolve_device(device)
     t_start = time.perf_counter()
-    live = [i for i, s in enumerate(sets) if signature_ok(s.signature)]
+    with span("verify/subgroup_check", n_sets=len(sets)):
+        live = [i for i, s in enumerate(sets) if signature_ok(s.signature)]
     verdicts = [False] * len(sets)
     if not live:
         return verdicts
     t_subgroup = time.perf_counter()
-    m = _marshal_flat([sets[i] for i in live], pow2=False)
+    with span("verify/marshal", n_sets=len(live)):
+        m = _marshal_flat([sets[i] for i in live], pow2=False)
     t_marshal = time.perf_counter()
     CALL_COUNTS["individual"] += 1
-    ok = batch_verify.verify_signature_sets_individual(
-        m.msgs, m.sigs, _pubkeys(m, dev), m.key_mask, m.set_mask, device=dev
-    ).tolist()
+    with span("verify/device", s_bucket=m.s_bucket, individual=True):
+        ok = batch_verify.verify_signature_sets_individual(
+            tuple(_to_device(c, dev) for c in m.msgs),
+            tuple(_to_device(c, dev) for c in m.sigs),
+            _pubkeys(m, dev), _to_device(m.key_mask, dev), _to_device(m.set_mask, dev),
+            device=dev,
+        ).tolist()
+    t_end = time.perf_counter()
     for j, i in enumerate(live):
         verdicts[i] = bool(ok[j])
-    _record_stats(len(sets), m, t_start, t_subgroup, t_marshal, time.perf_counter(), True)
+    attribution.note_batch(consumer, "bls", lanes=m.s_bucket, live=len(live),
+                           duration_s=t_end - t_marshal)
+    _record_stats(len(sets), m, t_start, t_subgroup, t_marshal, t_end, True)
     return verdicts
+
+
+def verify_signature_set_batches_gpu(
+    batches, seed: int | None = None, device="cuda", ladder: str = "window", consumer=None
+) -> list:
+    """One verdict per batch, streamed: batch N+1 is marshalled and
+    launched while batch N runs on the card, and N's verdict is read only
+    then. Batch bi takes seed `seed + bi`; an empty batch, or one whose
+    signatures fail the policy, is False and never launched. On the CPU the
+    same loop runs without the overlap."""
+    dev = resolve_device(device)
+    t_wall0 = time.perf_counter()
+    results = [None] * len(batches)
+    pending = None  # (batch index, the read of its verdict)
+    host_s = 0.0
+    dispatched = 0
+    for bi, sets in enumerate(batches):
+        if not sets or not _policy_ok(sets):
+            results[bi] = False
+            continue
+        t0 = time.perf_counter()
+        m, rand_bits = _marshal_batch(sets, None if seed is None else seed + bi)
+        host_s += time.perf_counter() - t0
+        ok = _launch(m, rand_bits, dev, ladder)
+        # no duration: with the overlap a batch's device time is not seen
+        # alone; the whole call's wall is observed once below
+        attribution.note_batch(consumer, "bls", lanes=m.s_bucket, live=len(sets))
+        dispatched += 1
+        read = _read_later(ok)
+        if pending is not None:
+            results[pending[0]] = pending[1]()
+        pending = (bi, read)
+    if pending is not None:
+        results[pending[0]] = pending[1]()
+    wall_ms = (time.perf_counter() - t_wall0) * 1e3
+    if dispatched:
+        attribution.observe_seconds(consumer, "bls", wall_ms / 1e3)
+    LAST_STREAM_STATS.clear()
+    LAST_STREAM_STATS.update(
+        {"batches": len(batches), "dispatched": dispatched,
+         "host_marshal_ms": host_s * 1e3, "wall_ms": wall_ms}
+    )
+    return results
+
+
+def check_signature_subgroups(sigs, device="cuda") -> list:
+    """[r] P == O for each signature on `device`, in two launches for the
+    whole list -- the Jacobian entry of the to-affine kernel, then the
+    subgroup kernel -- and each signature's `_subgroup_ok` memo set to its
+    own verdict. The point at infinity becomes a masked lane and passes, as
+    `ref_curve.G2.in_subgroup` has it. Returns the verdicts."""
+    dev = resolve_device(device)
+    sigs = list(sigs)
+    if not sigs:
+        return []
+    with span("verify/subgroup_check", n_sets=len(sigs), device=dev.type):
+        words = _pack_jacobian([s.point for s in sigs], 2)
+        jac = tuple(batch_verify._lanes(_to_device(c, dev), dev) for c in words)
+        x, y, inf = curve_kernels.jacobian_to_affine(jac)
+        ok = subgroup.g2_in_subgroup(x, y, ~inf).tolist()
+    for s, v in zip(sigs, ok):
+        s._subgroup_ok = bool(v)
+    return ok

@@ -138,5 +138,20 @@ def pairing(p_g1, q_g2):
 
 def multi_pairing_is_one(pairs):
     """Check prod e(P_i, Q_i) == 1 with a single shared final
-    exponentiation."""
-    return final_exponentiation(miller_loop(pairs)) == ff.FP12_ONE
+    exponentiation. Staged under the tracer so every host-side pairing
+    check attributes its Miller-loop vs final-exp wall time."""
+    from lighthouse_tpu_torch.common.tracing import span
+
+    with span("verify/miller_loop", n_pairs=len(pairs)):
+        f = miller_loop(pairs)
+    with span("verify/final_exp"):
+        return final_exponentiation(f) == ff.FP12_ONE
+
+
+def pairing_check_points(g1_jacobian_pts, g2_jacobian_pts):
+    """Pairing product check over Jacobian inputs."""
+    pairs = [
+        (G1_GROUP.to_affine(p), G2_GROUP.to_affine(q))
+        for p, q in zip(g1_jacobian_pts, g2_jacobian_pts, strict=True)
+    ]
+    return multi_pairing_is_one(pairs)

@@ -25,7 +25,11 @@ gpu backend's signatures, and its pubkeys outside a table), which
 `curve_kernels.jacobian_to_affine` turns into the affine words of the JAX
 functions' inputs (`tpu_backend.batch_to_affine_g2` + `_pack_g2_affine`)
 before K1 or K2. Every step runs where its tensors are: CUDA tensors
-launch the kernels, CPU tensors run the plain versions.
+launch the kernels, CPU tensors run the plain versions. Nothing here reads
+a device value: the verdict comes back as a device tensor, and the
+constants are uploaded once a device (`fd.matrix`), so a caller that
+passes its inputs already on the card can launch a batch without waiting
+for the one before it.
 
 Pair masks follow `_assemble_pairs`: a set whose RLC'd aggregate key is the
 identity is masked (e(inf, H) == 1); padding sets enter as the identity and
@@ -41,6 +45,9 @@ the affine points and the verdict do not depend on it.
 batch: no RLC and no ladder, 2 S Miller pairs (agg_pk_i, H_i) and
 (-G1, sig_i), then K3's per-set entry -- one verdict per set in one device
 call.
+
+`g2_points_in_subgroup` is the batched signature subgroup check, [r] P ==
+O a lane (`ops/subgroup.py`).
 """
 
 import numpy as np
@@ -48,7 +55,7 @@ import torch
 
 from lighthouse_tpu_torch.crypto.constants import G1_X, G1_Y, P
 from lighthouse_tpu_torch.ops import curve_kernels, field as fd
-from lighthouse_tpu_torch.ops import final_exp, miller
+from lighthouse_tpu_torch.ops import final_exp, miller, subgroup
 from lighthouse_tpu_torch.ops import ladder as k1
 from lighthouse_tpu_torch.ops import window_ladder as wl
 
@@ -83,7 +90,7 @@ def _from_affine(x, y, valid):
     """Affine lanes + mask -> projective; masked lanes are the identity."""
     w, _, n = x.shape
     one = torch.zeros((w, NW, n), dtype=torch.int32, device=x.device)
-    one[0] = torch.as_tensor(fd.mont_words([1])[0], device=x.device)[:, None]
+    one[0] = fd.matrix(fd.mont_words([1])[0], x.device)[:, None]
     zero = torch.zeros_like(x)
     v = valid[None, None, :]
     return (
@@ -115,7 +122,7 @@ def _assemble_pairs(msgs_x, msgs_y, set_mask, pk_aff, sig_aff):
     pk_x, pk_y, pk_inf = pk_aff
     s_x, s_y, s_inf = sig_aff
     dev = pk_x.device
-    ng = [torch.as_tensor(c, device=dev).reshape(1, NW, 1) for c in NEG_G1_AFFINE]
+    ng = [fd.matrix(c, dev).reshape(1, NW, 1) for c in NEG_G1_AFFINE]
     g1 = (torch.cat([pk_x, ng[0]], dim=-1), torch.cat([pk_y, ng[1]], dim=-1))
     g2 = (torch.cat([msgs_x, s_x], dim=-1), torch.cat([msgs_y, s_y], dim=-1))
     mask = torch.cat([set_mask & ~pk_inf, ~s_inf])
@@ -194,7 +201,7 @@ def _individual_pairs(msgs, sigs, pubkeys, key_mask, set_mask, device):
     sm = _mask(set_mask, device)
     pk_x, pk_y, pk_inf = curve_kernels.to_affine(_aggregate_keys(pubkeys, key_mask, device))
     dev = pk_x.device
-    ng = [torch.as_tensor(c, device=dev).reshape(1, NW, 1).expand(1, NW, S) for c in NEG_G1_AFFINE]
+    ng = [fd.matrix(c, dev).reshape(1, NW, 1).expand(1, NW, S) for c in NEG_G1_AFFINE]
     g1 = (torch.cat([pk_x, ng[0]], dim=-1), torch.cat([pk_y, ng[1]], dim=-1))
     s_x, s_y = _affine(sigs, device)
     g2 = (
@@ -214,3 +221,14 @@ def verify_signature_sets_individual(msgs, sigs, pubkeys, key_mask, set_mask, de
     g1, g2, mask, sm = _individual_pairs(msgs, sigs, pubkeys, key_mask, set_mask, device)
     _, ok = final_exp.pair_final_exp(miller.miller_loop(g1, g2, mask))
     return ok | ~sm
+
+
+def g2_points_in_subgroup(points_g2_aff, mask, device="cuda"):
+    """(S,) bool: [r] P == O for each lane, the batched form of the
+    signature subgroup policy (ref_curve.G2.in_subgroup is the ground
+    truth); masked lanes pass. points_g2_aff = (x, y), each (S, 2, 12)
+    affine Montgomery words, mask (S,). The inputs are unchecked points:
+    the check runs on the unified Jacobian group, never on K1's RCB
+    formulas (`ops/subgroup.py`)."""
+    x, y = (_lanes(c, device) for c in points_g2_aff)
+    return subgroup.g2_in_subgroup(x, y, _mask(mask, device))

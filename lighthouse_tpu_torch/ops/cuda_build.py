@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc and call them through ctypes.
 
 Each source under `lighthouse_tpu_torch/csrc/` (one per kernel family; K1,
-K2, K3, the helpers and the Fp product's timing include the register
-arithmetic of `fp_reg.cuh`, K2, K3 and the product through `lanes.cuh`)
+K2, K3, the helpers, the subgroup check and the Fp product's timing include
+the register arithmetic of `fp_reg.cuh`, K2, K3 and the product through
+`lanes.cuh`)
 compiles at first use into its own shared library with a plain C
 interface under `lighthouse_tpu_torch/build/`:
 
@@ -69,6 +70,7 @@ SOURCES = {
         "lh_mma_probe_i8": [_P, _P, _I, _I, _I, _I, _P, _P],
         "lh_mma_probe_bf16": [_P, _P, _I, _I, _I, _I, _P, _P],
     },
+    "subgroup": {"lh_g2_subgroup": [_P, _P, _P, _I, _P, _P]},
 }
 
 # kernel name -> launches through its wrapper
@@ -90,6 +92,7 @@ LAUNCHES = {
     "jacobian_to_affine_g2": 0,
     "mma_probe_i8": 0,
     "mma_probe_bf16": 0,
+    "subgroup_g2": 0,
 }
 
 # source -> {"seconds": build time, "ptxas": ptxas -v report}

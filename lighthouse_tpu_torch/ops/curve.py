@@ -13,6 +13,15 @@ feeds in.
 These are the plain versions behind K1 (`ops/ladder.py`) and the helper
 kernels (`lane_sum`, `to_affine`, `jacobian_to_affine`, in
 `ops/curve_kernels.py`).
+
+`Jacobian` is the JAX package's unified Jacobian group
+(`lighthouse_tpu/ops/curve.py` `JacobianGroup`): dbl-2001-b and the
+generic addition with its selects for p == q, p == -q and the point at
+infinity (Z = 0), layer by layer as the JAX package stacks its products,
+so one step gives the same canonical words. It is total on any point of
+the curve, of any order, which the RCB formulas are not: the plain
+version behind the subgroup check (`ops/subgroup.py`), whose inputs are
+unchecked points.
 """
 
 import numpy as np
@@ -24,12 +33,39 @@ from lighthouse_tpu_torch.ops.programs import FP2_MUL
 NB = fd.NB
 
 
-class Projective:
+class _Group:
+    """What both coordinate systems share: the width w of a coordinate
+    (1: Fp, 2: Fp2), stacked products and per-lane selects."""
+
+    def __init__(self, w: int):
+        self.w = w
+
+    def _mul(self, a, b):
+        if self.w == 1:
+            return fd.mul_lazy(a, b)
+        return fd.bilinear(a, b, FP2_MUL)
+
+    def _stack_mul(self, avals, bvals):
+        out = self._mul(torch.stack(avals), torch.stack(bvals))
+        return list(out.unbind(0))
+
+    def select(self, cond, a, b):
+        return tuple(fd.select(cond, ca, cb) for ca, cb in zip(a, b))
+
+    def neg(self, pt):
+        return (pt[0], fd.apply_combo(pt[1], -np.eye(self.w, dtype=np.int32)), pt[2])
+
+    @staticmethod
+    def _is_zero(Z):
+        return (fd.canon(Z) == 0).all(dim=-2).all(dim=-2)
+
+
+class Projective(_Group):
     """Complete projective group over Fp (w = 1) or Fp2 (w = 2); `b3` is the
     component-space matrix of multiplication by 3b."""
 
     def __init__(self, w: int, b3):
-        self.w = w
+        super().__init__(w)
         b3 = np.asarray(b3, dtype=np.int64)
         Iw = np.eye(w, dtype=np.int64)
 
@@ -82,15 +118,6 @@ class Projective:
 
     # ---------------------------------------------------------- helpers
 
-    def _mul(self, a, b):
-        if self.w == 1:
-            return fd.mul_lazy(a, b)
-        return fd.bilinear(a, b, FP2_MUL)
-
-    def _stack_mul(self, avals, bvals):
-        out = self._mul(torch.stack(avals), torch.stack(bvals))
-        return list(out.unbind(0))
-
     def _combo(self, vals, m, n_out):
         w = self.w
         y = fd.apply_combo(torch.cat(vals, dim=-3), m)
@@ -99,9 +126,6 @@ class Projective:
     def identity(self, batch: int, device):
         zero = torch.zeros((self.w, NB, batch), dtype=torch.int32, device=device)
         return (zero, fd.one_slot0(self.w, batch, device), zero.clone())
-
-    def select(self, cond, a, b):
-        return tuple(fd.select(cond, ca, cb) for ca, cb in zip(a, b))
 
     def from_affine(self, aff, valid):
         """(x, y) (w, NB, B) + (B,) mask -> projective; invalid lanes become
@@ -114,9 +138,6 @@ class Projective:
             fd.select(valid, y, iy),
             fd.select(valid, one, iz),
         )
-
-    def neg(self, pt):
-        return (pt[0], fd.apply_combo(pt[1], -np.eye(self.w, dtype=np.int32)), pt[2])
 
     # -------------------------------------------------------- group ops
 
@@ -215,10 +236,6 @@ class Projective:
         conj = fd.apply_combo(Z, np.array([[1, 0], [0, -1]], np.int32))
         return fd.mul_lazy(conj, torch.broadcast_to(ninv, conj.shape))
 
-    @staticmethod
-    def _is_zero(Z):
-        return (fd.canon(Z) == 0).all(dim=-2).all(dim=-2)
-
     def to_affine(self, pt):
         """(x, y, is_identity) with x = X/Z, y = Y/Z; the identity maps to
         (0, 0), since inv(0) == 0."""
@@ -238,10 +255,77 @@ class Projective:
         return x, y, self._is_zero(Z)
 
 
+class Jacobian(_Group):
+    """The unified Jacobian group over Fp (w = 1) or Fp2 (w = 2), the port
+    of `JacobianGroup`: (X, Y, Z) is the point (X / Z^2, Y / Z^3), Z = 0 the
+    point at infinity."""
+
+    def infinity_like(self, pt):
+        """(1, 1, 0) on the lanes of `pt`."""
+        one = fd.one_slot0(self.w, pt[0].shape[-1], pt[0].device)
+        return (one, one.clone(), torch.zeros_like(one))
+
+    def from_affine(self, x, y, valid):
+        """(x, y) (w, NB, B) + (B,) mask -> (x, y, 1); invalid lanes become
+        (0, 1, 0), the point at infinity (batch_verify.g2_points_in_subgroup)."""
+        one = fd.one_slot0(self.w, x.shape[-1], x.device)
+        zero = torch.zeros_like(x)
+        return (fd.select(valid, x, zero), fd.select(valid, y, one), fd.select(valid, one, zero))
+
+    def is_infinity(self, pt):
+        return self._is_zero(pt[2])
+
+    def double(self, pt):
+        """dbl-2001-b: total, a Z = 0 or Y = 0 input gives Z3 = 0."""
+        x, y, z = pt
+        a, b, yz = self._stack_mul([x, y, y], [x, y, z])
+        e = fd.scalar_small(a, 3)
+        xb = fd.add(x, b)
+        c, xb2, f = self._stack_mul([b, xb, e], [b, xb, e])
+        d = fd.scalar_small(fd.sub(fd.sub(xb2, a), c), 2)
+        x3 = fd.sub(f, fd.scalar_small(d, 2))
+        (t,) = self._stack_mul([e], [fd.sub(d, x3)])
+        y3 = fd.sub(t, fd.scalar_small(c, 8))
+        return (x3, y3, fd.scalar_small(yz, 2))
+
+    def add(self, p, q):
+        """The generic addition, then the selects: p == q (H = 0, R = 0,
+        neither at infinity) takes the doubling, Z(q) = 0 gives p and Z(p) =
+        0 gives q. p == -q needs no select: the generic Z3 = 2 Z1 Z2 H is 0."""
+        x1, y1, z1 = p
+        x2, y2, z2 = q
+        inf_p, inf_q = self.is_infinity(p), self.is_infinity(q)
+        z1s, z2s = self._stack_mul([z1, z2], [z1, z2])
+        u1, u2, z2c, z1c = self._stack_mul([x1, x2, z2s, z1s], [z2s, z1s, z2, z1])
+        s1, s2 = self._stack_mul([y1, y2], [z2c, z1c])
+        h = fd.sub(u2, u1)
+        r = fd.sub(s2, s1)
+        same_x, same_y = self._is_zero(h), self._is_zero(r)
+        h2 = fd.scalar_small(h, 2)
+        rr = fd.scalar_small(r, 2)
+        (zz,) = self._stack_mul([z1], [z2])
+        i, rr2, zzh = self._stack_mul([h2, rr, zz], [h2, rr, h])
+        z3 = fd.scalar_small(zzh, 2)
+        j, v = self._stack_mul([h, u1], [i, i])
+        x3 = fd.sub(fd.sub(rr2, j), fd.scalar_small(v, 2))
+        t, s1j = self._stack_mul([rr, s1], [fd.sub(v, x3), j])
+        y3 = fd.sub(t, fd.scalar_small(s1j, 2))
+        use_dbl = ~inf_p & ~inf_q & same_x & same_y
+        out = (x3, y3, z3)
+        if bool(use_dbl.any()):  # the doubling only where a lane takes it: equal words
+            out = self.select(use_dbl, self.double(p), out)
+        out = self.select(inf_q, p, out)
+        return self.select(inf_p, q, out)
+
+
 # b3 = 3b: G1 b = 4 -> 12; G2 b = 4 + 4u -> 12 + 12u, acting on (a0 + a1 u)
 # as (12 a0 - 12 a1) + (12 a0 + 12 a1) u
 G1 = Projective(1, [[12]])
 G2 = Projective(2, [[12, -12], [12, 12]])
+
+
+# the unified Jacobian G2, the subgroup check's group
+J2 = Jacobian(2)
 
 
 def group(w: int) -> Projective:

@@ -19,10 +19,10 @@ import pytest
 import torch
 
 from lighthouse_tpu_torch import testing as T
-from lighthouse_tpu_torch.bls import api
+from lighthouse_tpu_torch.bls import api, gpu_backend
 from lighthouse_tpu_torch.bls.device_pubkey_table import DevicePubkeyTable
 from lighthouse_tpu_torch.ops import cuda_build, curve_kernels, field as fd
-from lighthouse_tpu_torch.ops import final_exp, ladder, miller, mma_probe
+from lighthouse_tpu_torch.ops import final_exp, ladder, miller, mma_probe, subgroup
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "lighthouse_tpu_torch")
@@ -78,7 +78,7 @@ def test_every_kernel_has_a_source_and_a_counter():
         "ladder_g1", "ladder_g2", "miller", "fold_final_exp",
         "lane_sum_g1", "lane_sum_g2", "to_affine_g1", "to_affine_g2",
         "jacobian_to_affine_g1", "jacobian_to_affine_g2", "ladder_g1_chain", "ladder_g2_chain", "ladder_g1_w2", "ladder_g2_w2",
-        "pair_final_exp", "mma_probe_i8", "mma_probe_bf16",
+        "pair_final_exp", "mma_probe_i8", "mma_probe_bf16", "subgroup_g2",
     }
 
 
@@ -121,6 +121,9 @@ WRAPPERS = {
     ),
     "mma_probe_bf16": lambda: mma_probe.contract(
         *mma_probe.operands(*mma_probe.probe_inputs(), "bf16", "cpu"), "bf16", require_kernel=True
+    ),
+    "subgroup_g2": lambda: subgroup.g2_in_subgroup(
+        *_point(2, 4)[:2], torch.ones(4, dtype=torch.bool), require_kernel=True
     ),
 }
 
@@ -167,6 +170,21 @@ def test_cuda_device_without_gpu_raises():
     sets = T.flat_sets(T.validator_pubkeys(2), 1, max_keys=1, seed=0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         api.verify_signature_sets(sets, seed=0, device="cuda")
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        lambda sets: gpu_backend.check_signature_subgroups([s.signature for s in sets], device="cuda"),
+        lambda sets: api.verify_signature_set_batches([sets], seed=0, device="cuda"),
+    ],
+    ids=["check_signature_subgroups", "verify_signature_set_batches"],
+)
+def test_new_entry_points_without_gpu_raise(call):
+    _needs_no_gpu()
+    sets = T.flat_sets(T.validator_pubkeys(2), 1, max_keys=1, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call(sets)
 
 
 def test_cuda_table_without_gpu_raises():

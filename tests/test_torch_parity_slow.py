@@ -2,8 +2,9 @@
 exactly (canonical words): the transposed Miller loop before the final
 exponentiation, the lane fold plus final exponentiation, the windowed RLC
 ladder, the Pallas batch verify in interpret mode, the Pallas chain and
-2-bit ladder kernels in interpret mode, and the per-set verification graph
-(values after the final exponentiation, and verdicts).
+2-bit ladder kernels in interpret mode, the per-set verification graph
+(values after the final exponentiation, and verdicts), and the G2 subgroup
+check over all of r (verdicts).
 
 Marked slow: each JAX reference is a whole jitted graph whose cold compile
 takes minutes on a CPU (the Miller loop alone about a minute, the final
@@ -190,3 +191,40 @@ def test_individual_graph_matches():
     assert np.array_equal(values.permute(2, 0, 1).numpy(), want)
     got_ok = batch_verify.verify_signature_sets_individual(*port, device="cpu")
     assert got_ok.tolist() == want_ok.tolist() == [True, False]
+
+
+def test_g2_points_in_subgroup_matches_jax_and_ref():
+    """The whole subgroup check, `jax.jit(batch_verify.g2_points_in_subgroup)`
+    against the port's plain version (`batch_verify.g2_points_in_subgroup`
+    on the CPU) and `ref_curve.G2.in_subgroup`: the points of
+    tests/test_curve_device.py:136-141, a point of order 13 and its
+    negation, the subgroup points with Z != 1, a masked SSWU lane and a
+    masked (0, 0) lane."""
+    from lighthouse_tpu_torch.crypto.ref_curve import G2 as RG2
+    from tests.test_torch_subgroup import _check_points, _sswu
+
+    pts = _check_points()
+    affs = [RG2.to_affine(p) for p in pts] + [RG2.to_affine(_sswu(b"masked", 1)[0]), ((0, 0), (0, 0))]
+    xs = fd.mont_words([c for a in affs for c in a[0]]).reshape(-1, 2, fd.NW)
+    ys = fd.mont_words([c for a in affs for c in a[1]]).reshape(-1, 2, fd.NW)
+    mask = np.array([True] * len(pts) + [False, False])
+    got = batch_verify.g2_points_in_subgroup((xs, ys), mask, device="cpu").tolist()
+    want = [RG2.in_subgroup(p) for p in pts] + [True, True]
+    assert got == want and want[:6] == [True, True, False, False, False, False]
+    jax_out = jax.jit(jbv.g2_points_in_subgroup)(
+        (jnp.asarray(fd.to_jax_bundle(xs)), jnp.asarray(fd.to_jax_bundle(ys))), jnp.asarray(mask))
+    assert np.asarray(jax_out).tolist() == got
+
+
+def test_check_signature_subgroups_memo_matches_ref():
+    """Every signature's memo from `gpu_backend.check_signature_subgroups`
+    on the CPU, over all of r, equals ref_curve.G2.in_subgroup, the point at
+    infinity included."""
+    from lighthouse_tpu_torch.bls import api, gpu_backend
+    from lighthouse_tpu_torch.crypto.ref_curve import G2 as RG2
+    from tests.test_torch_subgroup import _check_points
+
+    sigs = [api.Signature(p) for p in _check_points()] + [api.Signature(RG2.infinity)]
+    want = [RG2.in_subgroup(s.point) for s in sigs]
+    assert gpu_backend.check_signature_subgroups(sigs, device="cpu") == want
+    assert [s._subgroup_ok for s in sigs] == want and want.count(False) == 4 and want[-1]

@@ -9,9 +9,11 @@ non-zero without its result line:
  1. the card's name and power limit (nvidia-smi, printed as is);
  2. build every CUDA kernel from lighthouse_tpu_torch/csrc (one nvcc per
     source, in parallel), with what ptxas reports per kernel (K1's six
-    instantiations, which must have no stack frame and no spills, the
-    helpers and the subgroup check on lines of their own: registers, stack
-    frame, spills, shared memory) and the dynamic shared memory of the
+    instantiations and the subgroup check, which must have no stack frame
+    and no spills, and the helpers on lines of their own: registers, stack
+    frame, spills, shared memory; the subgroup check's blocks an SM from
+    the CUDA runtime, with the lanes an SM and the waves at 30,720 and
+    1,024 lanes) and the dynamic shared memory of the
     lane-group kernels K2 and K3;
  2b. the register-resident Fp product of K1's window body, K2 and K3 alone
     (ops/fp_product.py): one thread's dependent chain (latency) and every
@@ -39,13 +41,18 @@ non-zero without its result line:
     lanes; to_affine on Z = 1, identity and general lanes; the fold on
     P + P, P + (-P) and identity lanes, in one launch and in two);
  4b. the subgroup kernel against its plain version as exact bools, on a
-    1,024-lane slice of the slot and on an edge batch (Z != 1 signatures,
-    their negations and rescaled copies, SSWU points before cofactor
-    clearing, a point of order 13 on the twist, its negation and double, a
-    subgroup point plus it, the point at infinity, masked lanes), both also
-    against ref_curve; its device time at the slot's 30,720 lanes beside
-    its bound (the products it runs there), the JAX form's bound and the
-    bound at the product rate measured in 2b;
+    1,024-lane slice of the slot, two warps (one order-13 lane among slot
+    signatures; eight lanes that all take the acc == addend branch) and an
+    edge batch (Z != 1 signatures, their negations and rescaled copies, SSWU
+    points before cofactor clearing, a point of order 13 on the twist, its
+    negation and double, a subgroup point plus it, the point at infinity,
+    masked lanes), all also against ref_curve; its device time at the
+    slot's 30,720 lanes, on the 1,058-lane batch (the slice and the edge
+    batch, without the two warps) and on the 1,024-lane slice, beside its
+    bound (the products of the formulas), the rows' own bound
+    (ops/subgroup_rows.py), the JAX form's and the bound at the product
+    rate measured in 2b (on the `subgroup` line; the `kernels` line keeps
+    the times and bound_ms);
  5. end to end through bls.api.verify_signature_sets(device="cuda"): the
     slot (grouped, indexed) and the flat batch verify True, a forged
     signature False, 4 sets cross-checked with the ref backend; launch
@@ -148,7 +155,7 @@ def main() -> int:
     from lighthouse_tpu_torch.ops import batch_verify as bv
     from lighthouse_tpu_torch.ops import cuda_build, curve, curve_kernels, field as fd
     from lighthouse_tpu_torch.ops import final_exp, fp_product, lanes, ladder, ladder_rows, miller
-    from lighthouse_tpu_torch.ops import mma_probe, subgroup
+    from lighthouse_tpu_torch.ops import mma_probe, subgroup, subgroup_rows
     from lighthouse_tpu_torch.ops import window_ladder
     from lighthouse_tpu_torch.bls.hash_to_curve import hash_to_field_fp2, iso_map, map_to_curve_sswu
     from lighthouse_tpu_torch.common import device_attribution
@@ -204,16 +211,21 @@ def main() -> int:
     emit("helpers_ptxas", kernels=helpers_ptxas,
          stack_frames=sorted(n for n, r in helpers_ptxas.items() if r["stack_bytes"]))
     assert len(helpers_ptxas) == 6, "helpers: expected 2 fold and 4 affine kernels"
-    # the subgroup check: one thread a lane, its slot file in local memory
-    # (a stack frame, reported, not refused)
+    # the subgroup check on lane groups: registers, stack frame, spills and
+    # shared memory, and the blocks an SM that the CUDA runtime reports with
+    # the lanes an SM and the waves they give at the slot's 30,720 lanes and
+    # a gossip batch's 1,024; no stack frame and no spill, as K1
     subgroup_ptxas = {
         name: dict(rec, **ptxas["subgroup"]["functions"].get(name, {}))
         for name, rec in ptxas["subgroup"]["kernels"].items()
     }
     emit("subgroup_ptxas", kernels=subgroup_ptxas,
+         occupancy={n: subgroup.occupancy(n, dev) for n in (30_720, 1_024)},
          spill_store_bytes=ptxas["subgroup"]["spill_store_bytes"],
          spill_load_bytes=ptxas["subgroup"]["spill_load_bytes"])
     assert len(subgroup_ptxas) == 1, "subgroup: expected 1 kernel"
+    assert not any(r["stack_bytes"] or r.get("stack_frame") for r in subgroup_ptxas.values()) \
+        and not ptxas["subgroup"]["spill_store_bytes"], f"subgroup: stack frame or spills {subgroup_ptxas}"
 
     # ---------------------------------------- 2b. the Fp product alone
     prod = fp_product.measure(dev)
@@ -478,40 +490,63 @@ def main() -> int:
         x, y, inf = curve_kernels.jacobian_to_affine(jac)
         return x, y, ~inf
 
-    # a 1,024-lane slice of the slot, then the edge batch: slot signatures
-    # (Z != 1), their negations and copies with another Z, SSWU points
-    # before cofactor clearing, a point of order 13 on the twist, its
-    # negation and double, a subgroup point plus it, the point at infinity
-    # (Z = 0: masked by the Jacobian entry), and SSWU points under an
-    # explicit mask; one plain run for both (its time is launches, not lanes)
+    # a 1,024-lane slice of the slot, then the edge batch: two warps (the
+    # kernel's blocks are 8 lanes, so each starts on a multiple of 8), one
+    # with a single order-13 lane among slot signatures and one whose lanes
+    # all take the acc == addend branch ([k] of the order-13 point); then
+    # slot signatures (Z != 1), their negations and copies with another Z,
+    # SSWU points before cofactor clearing, a point of order 13 on the
+    # twist, its negation and double, a subgroup point plus it, the point at
+    # infinity (Z = 0: masked by the Jacobian entry), and SSWU points under
+    # an explicit mask; one plain run for all (its time is launches, not
+    # lanes)
     q13 = RG2.from_affine(((ORDER13[0], ORDER13[1]), (ORDER13[2], ORDER13[3])))
     sswu = [RG2.from_affine(iso_map(map_to_curve_sswu(u))) for u in hash_to_field_fp2(b"edge", 8)]
     live = [s.signature.point for s in slot[:8]]
     rescaled = [(RG2.F.mul((9, 0), X), RG2.F.mul((27, 0), Y), RG2.F.mul((3, 0), Z)) for X, Y, Z in live[:4]]
+    warps = [s.signature.point for s in slot[8:15]] + [q13] + [RG2.mul_scalar(q13, k) for k in range(1, 9)]
     edge_pts = (live + [RG2.neg(p) for p in live] + rescaled + sswu[:4]
                 + [q13, RG2.neg(q13), RG2.add(q13, q13), RG2.add(live[0], q13)]
                 + [RG2.infinity] * 2 + sswu[4:])
     SLICE_SG = 1_024
-    x_s, y_s, m_s = sig_lanes([s.signature.point for s in slot[:SLICE_SG]] + edge_pts)
+    assert SLICE_SG % 8 == 0 and len(warps) == 16
+    x_s, y_s, m_s = sig_lanes([s.signature.point for s in slot[:SLICE_SG]] + warps + edge_pts)
     m_s[-4:] = False
     rec_slice = hold("subgroup_g2", lambda: subgroup.g2_in_subgroup(x_s, y_s, m_s),
                      lambda: subgroup.g2_in_subgroup_plain(x_s, y_s, m_s), nb(x_s, y_s, m_s),
                      products=subgroup.kernel_products(int(m_s.sum())))
     out_k = subgroup.g2_in_subgroup(x_s, y_s, m_s).tolist()
+    want_warps = [RG2.in_subgroup(p) for p in warps]
     want = [RG2.in_subgroup(p) for p in edge_pts[:-4]] + [True] * 4
     assert all(out_k[:SLICE_SG]), "subgroup: a slot signature rejected"
-    assert out_k[SLICE_SG:] == want and want.count(False) == 8, f"subgroup: edge batch {out_k[SLICE_SG:]}"
+    assert out_k[SLICE_SG:SLICE_SG + 16] == want_warps and want_warps == [True] * 7 + [False] * 9, \
+        f"subgroup: the two warps {out_k[SLICE_SG:SLICE_SG + 16]}"
+    assert out_k[SLICE_SG + 16:] == want and want.count(False) == 8, f"subgroup: edge batch {out_k[SLICE_SG + 16:]}"
+    # the 1,058 lanes of the slice and the edge batch (no warps) and the
+    # slice alone, timed as the batch a gossip burst gives the kernel
+    keep = list(range(SLICE_SG)) + list(range(SLICE_SG + 16, x_s.shape[-1]))
+    x_o, y_o, m_o = (t[..., keep].contiguous() for t in (x_s, y_s, m_s))
+    x_k, y_k, m_k = (t[..., :SLICE_SG].contiguous() for t in (x_s, y_s, m_s))
+    assert subgroup.g2_in_subgroup(x_o, y_o, m_o).tolist() == out_k[:SLICE_SG] + out_k[SLICE_SG + 16:]
     x_t, y_t, m_t = sig_lanes([s.signature.point for s in slot])
     n_t = int(m_t.sum())
     t_ops = subgroup.kernel_products(n_t) * IMAD_PER_FP_PRODUCT / INT_OPS_PER_S * 1e3
     records["subgroup"] = {
         "ms": cuda_build.time_ms(lambda: subgroup.g2_in_subgroup(x_t, y_t, m_t)),
-        "lanes": n_t, "slice": dict(rec_slice, lanes=SLICE_SG + len(edge_pts)), "plain_ms": rec_slice["plain_ms"],
+        "ms_1058": cuda_build.time_ms(lambda: subgroup.g2_in_subgroup(x_o, y_o, m_o)),
+        "ms_1024": cuda_build.time_ms(lambda: subgroup.g2_in_subgroup(x_k, y_k, m_k)),
+        "lanes": n_t, "slice": dict(rec_slice, lanes=x_s.shape[-1]), "plain_ms": rec_slice["plain_ms"],
         "max_abs_err": rec_slice["max_abs_err"],
         "bound_ms": max(t_ops, nb(x_t, y_t, m_t) / HBM_BYTES_PER_S * 1e3), "bound_by": "operations",
         "bound_jax_form_ms": subgroup.jax_form_products(n_t) * IMAD_PER_FP_PRODUCT / INT_OPS_PER_S * 1e3,
         "bound_measured_rate_ms": subgroup.kernel_products(n_t) / prod["products_per_s"] * 1e3,
+        # the rows' own count: 3,922 Fp2 products a lane at 2.5 products' multiply-adds
+        "row_products": subgroup.row_products(n_t),
+        "bound_rows_ms": subgroup.row_products(n_t) * IMAD_PER_FP_PRODUCT / INT_OPS_PER_S * 1e3,
+        "lane_work": subgroup_rows.lane_work(),
         "fp_products": subgroup.kernel_products(n_t),
+        "warps": {"order13_among_slot": out_k[SLICE_SG:SLICE_SG + 8],
+                  "all_acc_equals_addend": out_k[SLICE_SG + 8:SLICE_SG + 16], "held": True},
         "edge": {"lanes": len(edge_pts), "rejected": want.count(False), "masked": 6, "held": True,
                  "agrees_with_ref_curve": True},
     }
@@ -888,8 +923,9 @@ def main() -> int:
         "mma_probe_bf16": (csrc + "mma_probe.cu", "scripts/probe_mxu_forms.py:67", None),
         "subgroup_g2": (csrc + "subgroup.cu", "lighthouse_tpu/ops/batch_verify.py:428",
                         "XLA on the TPU (a lax.scan, no Pallas kernel); ms at the slot's 30,720 "
-                        "lanes; held and plain_ms on a 1,024-lane slice of the slot plus a 34-lane "
-                        "edge batch; launches from the ingest run"),
+                        "lanes (ms_1058, ms_1024: the slice and the edge batch, the 1,024-lane slice); "
+                        "held and plain_ms on the slice plus two 8-lane warps and a 34-lane edge "
+                        "batch; launches from the ingest run"),
     }
     kernels = []
     for name, (source, replaces, note) in meta.items():
@@ -909,7 +945,7 @@ def main() -> int:
             entry["slice"] = records["per_set"]["pair_final_exp_slice"]
         elif name == "subgroup_g2":
             rec, launches = records["subgroup"], ingest_launches[name]
-            entry.update({k: rec[k] for k in ("lanes", "bound_jax_form_ms", "bound_measured_rate_ms")})
+            entry.update({k: rec[k] for k in ("lanes", "ms_1058", "ms_1024")})
         else:
             rec, launches = records["probe"][name], probe_launches[name]
         entry.update({
@@ -918,8 +954,6 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms"), "held": True,
             "note": note,
         })
-        if "bound_lockstep_ms" in rec:
-            entry["bound_lockstep_ms"] = rec["bound_lockstep_ms"]
         if name == "miller":
             entry["per_set"] = records["per_set"]["miller"] | {"launches": per_set_launches[name]}
         kernels.append(entry)

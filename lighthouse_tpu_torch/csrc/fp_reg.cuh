@@ -4,11 +4,15 @@
 // (lanes.cuh), K1 (ladder.cu) and the helpers (curve_helpers.cu) run their
 // products and sums here; csrc/fp_product.cu times `fp_mul` alone.
 //
-// `fp_mul` is SOS over 12 words with 64-bit carries. It was faster on the
-// card than CIOS with 64-bit carries and than CIOS with PTX carry chains
-// (mad.lo.cc / madc.hi.cc): PERF.md. It takes operands below 2p and
-// returns a canonical value (< p); the sums and differences below take and
-// return canonical values.
+// `fp_mul` is SOS over 12 words: the product's rows with 64-bit carries,
+// the Montgomery reduction's rows each two PTX carry chains (mad.lo.cc /
+// madc.hi.cc, two instructions a multiply-add). Of the four ways to pair
+// the two carries, this one was the fastest in K1 on G2 (PERF.md), and
+// SOS was faster than CIOS with either carry. It takes
+// operands below 2p and returns a canonical value (< p); the sums and
+// differences below take and return canonical values. ops/fp_product.py
+// `mul_wide_words` / `reduce_words` model the product and the reduction
+// word for word.
 #pragma once
 
 #include <stdint.h>
@@ -62,32 +66,44 @@ __device__ __forceinline__ void mul_wide(u32 t[2 * NW + 1], const u32 a[NW], con
   }
 }
 
+// w[2k] += lo(x[2k] y) and w[2k + 1] += hi(x[2k] y) for k = 0..5 in one
+// PTX carry chain -- w[0..12] at %0..%12, x[2k] at %(14 + k), y at %20 --
+// then the tail, which ends the chain in the same asm statement, so that
+// nothing the compiler schedules comes between the carry flag's writer
+// and its reader
+#define LH_MAD_CHAIN(w, c, x, y, tail)                                                 \
+  asm("mad.lo.cc.u32 %0, %14, %20, %0;\n\tmadc.hi.cc.u32 %1, %14, %20, %1;\n\t"          \
+      "madc.lo.cc.u32 %2, %15, %20, %2;\n\tmadc.hi.cc.u32 %3, %15, %20, %3;\n\t"          \
+      "madc.lo.cc.u32 %4, %16, %20, %4;\n\tmadc.hi.cc.u32 %5, %16, %20, %5;\n\t"          \
+      "madc.lo.cc.u32 %6, %17, %20, %6;\n\tmadc.hi.cc.u32 %7, %17, %20, %7;\n\t"          \
+      "madc.lo.cc.u32 %8, %18, %20, %8;\n\tmadc.hi.cc.u32 %9, %18, %20, %9;\n\t"          \
+      "madc.lo.cc.u32 %10, %19, %20, %10;\n\tmadc.hi.cc.u32 %11, %19, %20, %11;\n\t" tail \
+      : "+r"((w)[0]), "+r"((w)[1]), "+r"((w)[2]), "+r"((w)[3]), "+r"((w)[4]),            \
+        "+r"((w)[5]), "+r"((w)[6]), "+r"((w)[7]), "+r"((w)[8]), "+r"((w)[9]),             \
+        "+r"((w)[10]), "+r"((w)[11]), "+r"((w)[12]), "+r"(c)                              \
+      : "r"((x)[0]), "r"((x)[2]), "r"((x)[4]), "r"((x)[6]), "r"((x)[8]), "r"((x)[10]),    \
+        "r"(y))
+
 // r = t 2^-384 mod p, canonical, for t < p 2^384 (t is overwritten): 12
-// Montgomery reduction rows. A row's carry out of word i + 11 is not
-// rippled up the words above: the next row takes it into its last step,
-// which adds into that very word (p's top word is below 2^29, so m p_11 +
-// a word + both carries stays below 2^62), and the last row's carry goes
-// into word 23. Before the last subtraction the value is (t + m p) / 2^384
-// < (p 2^384 + 2^384 p) / 2^384 = 2p, so word 23 takes that carry without
-// overflow and word 24 stays 0.
+// Montgomery rows, each adding m p (m = t[i] (-p^-1) mod 2^32) in two carry
+// chains, of p's even words into words i..i + 11 and of its odd words into
+// words i + 1..i + 12. Words i + 12 and i + 13 still hold t's own words,
+// which may be all ones, so no carry is dropped: the even chain adds its
+// carry into word i + 12 and keeps that word's carry out in c, with the
+// odd chain's carry from the row before (both belong to word i + 13, so c
+// <= 2); the odd chain adds c and its own carry into word i + 13 and keeps
+// the carry out (<= 1, for word i + 14, the next row's odd chain's word).
+// Before the last subtraction the value is (t + m p) / 2^384 < 2p, so word
+// 24 stays 0 and the last carry is 0.
 __device__ __forceinline__ void mont_reduce(u32 r[NW], u32 t[2 * NW + 1]) {
   const u32 pw[NW] = {LH_P_WORDS};
-  u32 carry = 0u;  // the previous row's carry into word i + 11
+  u32 c = 0u;  // the carry into word i + 13
 #pragma unroll
   for (int i = 0; i < NW; i++) {
     const u32 m = t[i] * N0;
-    u64 c = 0;
-#pragma unroll
-    for (int j = 0; j < NW - 1; j++) {
-      c += (u64)m * pw[j] + t[i + j];
-      t[i + j] = (u32)c;
-      c >>= 32;
-    }
-    c += (u64)m * pw[NW - 1] + t[i + NW - 1] + carry;
-    t[i + NW - 1] = (u32)c;
-    carry = (u32)(c >> 32);
+    LH_MAD_CHAIN(t + i, c, pw, m, "addc.cc.u32 %12, %12, 0;\n\taddc.u32 %13, %13, 0;");
+    LH_MAD_CHAIN(t + i + 1, c, pw + 1, m, "addc.cc.u32 %12, %12, %13;\n\taddc.u32 %13, 0, 0;");
   }
-  t[2 * NW - 1] += carry;
   reduce_once(r, t + NW);
 }
 

@@ -23,7 +23,8 @@
 // and its emulator check that), so one barrier a step is enough.
 //
 // The product and the operand sum live in fp_reg.cuh. `fp_mul` is SOS over
-// 12 words in 64-bit registers, fully unrolled, nothing in local memory;
+// 12 words (64-bit carries in the product, PTX carry chains in the
+// reduction), fully unrolled, nothing in local memory;
 // csrc/fp_product.cu times it alone. `lin_sum` accumulates each word in a
 // 64-bit register, one multiply-add a word and term (a negative coefficient -k adds k times the
 // complemented words, k (2^384 - 1 - x)), resolves the carries once with

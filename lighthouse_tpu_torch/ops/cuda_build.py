@@ -70,7 +70,7 @@ SOURCES = {
         "lh_mma_probe_i8": [_P, _P, _I, _I, _I, _I, _P, _P],
         "lh_mma_probe_bf16": [_P, _P, _I, _I, _I, _I, _P, _P],
     },
-    "subgroup": {"lh_g2_subgroup": [_P, _P, _P, _I, _P, _P]},
+    "subgroup": {"lh_g2_subgroup": [_P, _P, _P, _I, _P, _P], "lh_g2_subgroup_blocks_per_sm": [_P, _P]},
 }
 
 # kernel name -> launches through its wrapper

@@ -2,9 +2,10 @@
 
 `chain(x, y, length)`: for each column i of the (12, n) word operands,
 `length` dependent Montgomery products x_i <- x_i y_i 2^-384 mod p, with
-fp_reg.cuh's `fp_mul`, the product K1's window body, K2 and K3 run;
-`mul_words` models that product word for word. CUDA tensors launch
-`csrc/fp_product.cu` (one chain a thread), CPU tensors run `chain_plain`
+fp_reg.cuh's `fp_mul`, the product every field kernel runs; `mul_words`
+models that product word for word (`mul_wide_words`, `reduce_words`).
+CUDA tensors launch `csrc/fp_product.cu` (one chain a thread), CPU
+tensors run `chain_plain`
 (Python integers). `measure(device)` times one thread's chain (the
 latency of one product, which sets K3's fold chain) and a card full of
 chains (the product rate, beside the bound's derived 16.7 T int32
@@ -43,51 +44,73 @@ def random_words(n: int, seed: int, device="cpu") -> torch.Tensor:
     return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(device)
 
 
+M32 = (1 << 32) - 1
+N0 = -pow(P, -1, 1 << 32) % (1 << 32)  # -p^-1 mod 2^32
+P_WORDS = [P >> (32 * k) & M32 for k in range(NW)]
+
+
+def _mads(w, at, x, y) -> int:
+    """fp_reg.cuh `LH_MAD_CHAIN`'s multiply-adds on word list w: w[at +
+    2k] += lo(x[2k] y) and w[at + 2k + 1] += hi(x[2k] y), k = 0..5, in one
+    carry chain; returns the chain's carry out (0 or 1)."""
+    c = 0
+    for k in range(6):
+        prod = x[2 * k] * y
+        for off, part in ((0, prod & M32), (1, prod >> 32)):
+            v = w[at + 2 * k + off] + part + c
+            w[at + 2 * k + off], c = v & M32, v >> 32
+    return c
+
+
 def reduce_words(t: int) -> int:
     """Word-level model of fp_reg.cuh `mont_reduce` for 0 <= t < p 2^384:
-    12 Montgomery rows with the kernel's 64-bit carries, each row's carry
-    taken into the next row's last step; asserts that no step overflows
-    and that the value before the last subtraction is below 2p. Returns
-    t 2^-384 mod p."""
-    m32, n0 = 0xFFFFFFFF, (-pow(P, -1, 1 << 32)) % (1 << 32)
+    12 Montgomery rows, each two carry chains (p's even words into words i
+    .. i + 11, its odd words into i + 1 .. i + 12), the even chain's carry
+    added into word i + 12 and its carry out kept with the odd chain's
+    from the row before, the odd chain's carry and those added into word i
+    + 13; asserts that each row clears word i, that the carries stay in
+    their bounds, and that the value before the last subtraction is below
+    2p. Returns t 2^-384 mod p."""
     assert 0 <= t < P << 384
-    pw = [(P >> (32 * j)) & m32 for j in range(NW)]
-    w = [(t >> (32 * k)) & m32 for k in range(2 * NW + 1)]
-    carry = 0
+    w = [(t >> (32 * k)) & M32 for k in range(2 * NW + 1)]
+    c = 0  # the carry into word i + 13
     for i in range(NW):
-        m = w[i] * n0 & m32
-        c = 0
-        for j in range(NW - 1):
-            c += m * pw[j] + w[i + j]
-            assert c < 1 << 64
-            w[i + j], c = c & m32, c >> 32
-        c += m * pw[NW - 1] + w[i + NW - 1] + carry
-        assert c < 1 << 62
-        w[i + NW - 1], carry = c & m32, c >> 32
-    w[2 * NW - 1] += carry
-    assert w[2 * NW - 1] <= m32 and w[2 * NW] == 0
+        m = w[i] * N0 & M32
+        v = w[i + NW] + _mads(w, i, P_WORDS, m)
+        w[i + NW], c = v & M32, c + (v >> 32)
+        assert c <= 2
+        v = w[i + NW + 1] + _mads(w, i + 1, P_WORDS[1:], m) + c
+        w[i + NW + 1], c = v & M32, v >> 32
+        assert c <= 1 and w[i] == 0
+    assert c == 0 and w[2 * NW] == 0
     v = sum(w[NW + k] << (32 * k) for k in range(NW))
     assert v < 2 * P
     return v - P if v >= P else v
 
 
-def mul_words(a: int, b: int) -> int:
-    """Word-level model of fp_reg.cuh `fp_mul` for a, b < 2p: the SOS
-    product rows (no 64-bit step overflows), then `reduce_words`. Returns
-    a b 2^-384 mod p."""
-    m32 = 0xFFFFFFFF
+def mul_wide_words(a: int, b: int) -> list:
+    """Word-level model of fp_reg.cuh `mul_wide` for a, b < 2p: the SOS
+    product rows, each row's carry in a 64-bit register (no step
+    overflows). Returns the 25 words of a b."""
     assert 0 <= a < 2 * P and 0 <= b < 2 * P
-    aw = [(a >> (32 * j)) & m32 for j in range(NW)]
-    bw = [(b >> (32 * j)) & m32 for j in range(NW)]
+    aw = [(a >> (32 * j)) & M32 for j in range(NW)]
+    bw = [(b >> (32 * j)) & M32 for j in range(NW)]
     t = [0] * (2 * NW + 1)
     for i in range(NW):
         c = 0
         for j in range(NW):
             c += aw[j] * bw[i] + t[i + j]
             assert c < 1 << 64
-            t[i + j], c = c & m32, c >> 32
+            t[i + j], c = c & M32, c >> 32
         t[i + NW] = c
-    return reduce_words(sum(v << (32 * k) for k, v in enumerate(t)))
+    assert t[2 * NW] == 0
+    return t
+
+
+def mul_words(a: int, b: int) -> int:
+    """Word-level model of fp_reg.cuh `fp_mul` for a, b < 2p:
+    `mul_wide_words`, then `reduce_words`. Returns a b 2^-384 mod p."""
+    return reduce_words(sum(v << (32 * k) for k, v in enumerate(mul_wide_words(a, b))))
 
 
 def chain_plain(x, y, length: int) -> torch.Tensor:

@@ -3,7 +3,8 @@ version.
 
 Replaces `lighthouse_tpu/ops/batch_verify.py` `g2_points_in_subgroup`,
 which is XLA on the TPU (a `lax.scan` over r's 255 bits, outside any
-Pallas kernel). The CUDA source is `lighthouse_tpu_torch/csrc/subgroup.cu`.
+Pallas kernel). The CUDA source is `lighthouse_tpu_torch/csrc/subgroup.cu`:
+four threads a lane, running the generated rows of `ops/subgroup_rows.py`.
 
 The inputs are unchecked points -- gossip signatures before any check -- so
 the ladder runs on the unified Jacobian group (`curve.Jacobian`, the port
@@ -17,10 +18,12 @@ Montgomery words and a (B,) bool mask; a masked lane passes. The result is
 (B,) bool.
 """
 
+import ctypes
+
 import torch
 
 from lighthouse_tpu_torch.crypto.constants import R
-from lighthouse_tpu_torch.ops import cuda_build, curve, field as fd
+from lighthouse_tpu_torch.ops import cuda_build, curve, field as fd, subgroup_rows
 
 # r's bits, LSB first: 255 bits, 134 of them set
 R_BITS = tuple((R >> i) & 1 for i in range(R.bit_length()))
@@ -61,6 +64,30 @@ def kernel_products(lanes: int) -> int:
     bits, runs 22,950 Fp2 products a lane (`jax_form_products`)."""
     per_lane = DOUBLE_PRODUCTS * (len(R_BITS) - 1) + ADD_PRODUCTS * sum(R_BITS)
     return 3 * per_lane * lanes
+
+
+def row_products(lanes: int) -> float:
+    """Fp products' worth of multiply-adds the kernel's rows run on `lanes`
+    unmasked lanes: 3,922 Fp2 rows a lane (`subgroup_rows.lane_rows`), each
+    three 24-word products and two reductions, 2.5 products (9,805 a
+    lane)."""
+    return subgroup_rows.lane_rows() * subgroup_rows.ROW_MADDS / 288 * lanes
+
+
+def occupancy(lanes: int, device) -> dict:
+    """The kernel's blocks an SM on `device`, as the CUDA runtime reports
+    them (`lh_g2_subgroup_blocks_per_sm`), the lanes and warps an SM they
+    hold, and the waves `lanes` lanes take on the device's SMs."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = cuda_build.library("subgroup").lh_g2_subgroup_blocks_per_sm(ctypes.addressof(blocks), None)
+    if rc != 0:
+        raise RuntimeError(f"lh_g2_subgroup_blocks_per_sm: CUDA error {rc}")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per_sm = blocks.value * subgroup_rows.LANES
+    return {"blocks_per_sm": blocks.value, "lanes_per_sm": per_sm,
+            "warps_per_sm": blocks.value * subgroup_rows.BLOCK // 32, "sms": sms,
+            "waves": lanes / (sms * per_sm)}
 
 
 def jax_form_products(lanes: int) -> int:

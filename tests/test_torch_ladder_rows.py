@@ -239,27 +239,49 @@ def test_time_ms_needs_a_cuda_device():
     assert calls == []
 
 
-@pytest.mark.parametrize("kind", ["extremes", "random"])
+@pytest.mark.parametrize("kind", ["extremes", "random", "carry_edges", "ones_above"])
 def test_product_word_model(kind):
-    """fp_reg.cuh `fp_mul`, word for word (fp_product.mul_words): each
-    reduction row's carry taken into the next row's last step overflows no
-    64-bit step and gives a b 2^-384 mod p for operands below 2p."""
-    from lighthouse_tpu_torch.ops.fp_product import mul_words
+    """fp_reg.cuh `fp_mul`, word for word (fp_product.mul_words: the
+    product's rows with 64-bit carries, the reduction's carry chains): no
+    step overflows, no chain's carry is lost, and the result is a b
+    2^-384 mod p for operands below 2p, and
+    `reduce_words` gives t 2^-384 mod p over the lazy rows' wide sums [0,
+    6 p^2), with all-ones words where the reduction's chains carry into
+    words the product wrote (carry_edges: the edges; ones_above: random
+    sums whose words 11-23 are 0xffffffff or 0xfffffffe)."""
+    from lighthouse_tpu_torch.ops.fp_product import mul_wide_words, mul_words, reduce_words
 
     r_inv = pow(R, -1, P)
-    if kind == "extremes":
-        vals = [0, 1, P - 1, P, 2 * P - 1, (1 << 380) - 1]
-        pairs = [(a, b) for a in vals for b in vals]
+    rng = np.random.default_rng(7)
+    if kind in ("extremes", "random"):
+        if kind == "extremes":
+            vals = [0, 1, P - 1, P, 2 * P - 1, (1 << 380) - 1, (1 << 32) - 1, 1 << 352]
+            pairs = [(a, b) for a in vals for b in vals]
+        else:
+            pairs = [(int.from_bytes(rng.bytes(48), "little") % (2 * P),
+                      int.from_bytes(rng.bytes(48), "little") % (2 * P)) for _ in range(300)]
+        for a, b in pairs:
+            assert sum(w << (32 * k) for k, w in enumerate(mul_wide_words(a, b))) == a * b
+            assert mul_words(a, b) == a * b * r_inv % P
+        return
+    m32 = (1 << 32) - 1
+    if kind == "carry_edges":
+        ts = [0, 1, P * P, 6 * P * P - 1, (1 << 416) - (1 << 352) + 1]
+        ts += [((1 << (32 * j)) - 1 << 352) + low for j in range(1, 13) for low in (1, m32, P >> 200)]
+        ts.append(2 * P * P + (1 << 384) - 1)
     else:
-        rng = np.random.default_rng(7)
-        pairs = [(int.from_bytes(rng.bytes(48), "little") % (2 * P),
-                  int.from_bytes(rng.bytes(48), "little") % (2 * P)) for _ in range(300)]
-    for a, b in pairs:
-        assert mul_words(a, b) == a * b * r_inv % P
+        ts = []
+        for _ in range(300):
+            w = [int(v) for v in rng.integers(0, 1 << 32, 24, dtype=np.uint64)]
+            w[11:23] = [int(v) for v in rng.choice([m32, m32 - 1], 12)]
+            w[23] = int(rng.integers(0, (6 * P * P) >> 736))
+            ts.append(sum(v << (32 * k) for k, v in enumerate(w)))
+    for t in ts:
+        assert reduce_words(t) == t * r_inv % P
 
 
 def test_lazy_karatsuba_model():
-    """ladder.cu `fp2_row` for (a + a')(b + b') over Fp2: canonical
+    """fp2_row.cuh `fp2_row` for (a + a')(b + b') over Fp2: canonical
     component sums x0, x1 for the products a0 b0 and a1 b1, the four
     canonical terms' sum less 2p where it reaches 2p for the third product,
     the three 24-word products summed unreduced into T0 = P0 - P1 + p^2 and
@@ -290,9 +312,9 @@ def test_lazy_karatsuba_model():
 
 
 def test_kernel_p_squared_constant():
-    """ladder.cu's constants of the lazy product: p^2, 2 p^2 and 2p, word
-    for word."""
-    text = open(os.path.join(cuda_build.CSRC, "ladder.cu")).read()
+    """fp2_row.cuh's constants of the lazy product (K1's and the subgroup
+    check's): p^2, 2 p^2 and 2p, word for word."""
+    text = open(os.path.join(cuda_build.CSRC, "fp2_row.cuh")).read()
     for name, want in (("P2_W", P * P), ("P2X2_W", 2 * P * P)):
         body = text[text.index(f"{name}[2 * NW] = {{"):]
         words = [int(x, 16) for x in re.findall(r"0x([0-9a-f]+)u", body[: body.index("};")])]

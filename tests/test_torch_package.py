@@ -240,17 +240,41 @@ def test_ptxas_summary_reads_every_entry(stack):
     assert (out["spill_store_bytes"], out["spill_load_bytes"]) == (8, 4)
 
 
-def test_every_header_makes_its_sources_stale(monkeypatch, tmp_path):
+def _includers(header):
+    """The sources that include `header`, directly or through another
+    header."""
+    def includes(name):
+        with open(os.path.join(cuda_build.CSRC, name)) as f:
+            return re.findall(r'#include "([^"]+)"', f.read())
+
+    found, todo = set(), [header]
+    while todo:
+        h = todo.pop()
+        for name in os.listdir(cuda_build.CSRC):
+            if h in includes(name) and name not in found:
+                found.add(name)
+                todo.append(name)
+    return sorted(n[:-3] for n in found if n.endswith(".cu"))
+
+
+HEADERS = sorted(n for n in os.listdir(cuda_build.CSRC) if n.endswith(".cuh"))
+
+
+@pytest.mark.parametrize("header", HEADERS)
+def test_every_header_makes_its_sources_stale(monkeypatch, tmp_path, header):
+    """A library built before one of the headers its source includes
+    (directly or through another header, the generated row tables among
+    them) is rebuilt; one built after every file of csrc is not."""
     monkeypatch.setattr(cuda_build, "BUILD", str(tmp_path))
-    so = cuda_build.lib_path("miller")
-    open(so, "w").close()
+    sources = _includers(header)
+    assert sources, f"{header}: no source includes it"
     newest = max(os.path.getmtime(os.path.join(cuda_build.CSRC, f))
                  for f in os.listdir(cuda_build.CSRC))
-    os.utime(so, (newest + 10, newest + 10))
-    assert not cuda_build._stale("miller")
-    os.utime(so, (newest - 10, newest - 10))
-    assert cuda_build._stale("miller")
-    header = os.path.join(cuda_build.CSRC, "lanes.cuh")
-    os.utime(so, (os.path.getmtime(header) - 1,) * 2)
-    assert cuda_build._stale("miller")
+    for source in sources:
+        so = cuda_build.lib_path(source)
+        open(so, "w").close()
+        os.utime(so, (newest + 10, newest + 10))
+        assert not cuda_build._stale(source)
+        os.utime(so, (os.path.getmtime(os.path.join(cuda_build.CSRC, header)) - 1,) * 2)
+        assert cuda_build._stale(source), (header, source)
 

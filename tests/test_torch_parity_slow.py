@@ -228,3 +228,22 @@ def test_check_signature_subgroups_memo_matches_ref():
     want = [RG2.in_subgroup(s.point) for s in sigs]
     assert gpu_backend.check_signature_subgroups(sigs, device="cpu") == want
     assert [s._subgroup_ok for s in sigs] == want and want.count(False) == 4 and want[-1]
+
+
+def test_emulated_subgroup_rows_over_r_on_the_edge_set():
+    """The subgroup kernel's generated rows (`ops/subgroup_rows.py`), run on
+    Python integers over all of r as one warp, on every point of the edge
+    set -- subgroup points with Z != 1, SSWU points, a point of order 13,
+    its negation -- give ref_curve.G2.in_subgroup."""
+    from lighthouse_tpu_torch.crypto.ref_curve import G2 as RG2
+    from lighthouse_tpu_torch.ops import subgroup_rows
+    from tests.test_torch_subgroup import _check_points
+
+    pts = _check_points()
+    lanes = []
+    for pt in pts:
+        x, y = RG2.to_affine(pt)
+        lanes.append([c % P * R % P for c in (*x, *y, 1, 0)])
+    got = [acc[4] == acc[5] == 0 for acc, _ in
+           (trace[-1] for trace in subgroup_rows.emulate_warp(lanes))]
+    assert got == [RG2.in_subgroup(p) for p in pts] and got.count(False) == 4

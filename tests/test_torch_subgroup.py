@@ -1,12 +1,15 @@
 """The port's G2 subgroup check against the JAX package and the reference
 curve: the unified Jacobian step (`ops/curve.py` `Jacobian` against
 `lighthouse_tpu/ops/curve.py` `JacobianGroup`), the ladder of
-`batch_verify.g2_points_in_subgroup` over a few bits, the full check
-against `ref_curve.G2.in_subgroup` through the kernel's step programs, read
-out of `csrc/subgroup.cu` and run on Python integers, and the masks and the
-signature memo of `gpu_backend.check_signature_subgroups` on a ladder over
-13's bits. The plain version over all of r (~3-5 s on the CPU) is in
-tests/test_torch_parity_slow.py, against `ref_curve` and the JAX function.
+`batch_verify.g2_points_in_subgroup` over a few bits, the kernel's generated
+rows (`ops/subgroup_rows.py`: the header, the slot map's check, the counts,
+the rows run on Python integers lane by lane and warp by warp against the
+plain ladder word for word, and over all of r against
+`ref_curve.G2.in_subgroup`), and the masks and the signature memo of
+`gpu_backend.check_signature_subgroups` on a ladder over 13's bits. The
+plain version and the emulated rows over all of r on every edge point (~3-5
+s each on the CPU) are in tests/test_torch_parity_slow.py, against
+`ref_curve` and the JAX function.
 
 Inputs are exceptional on purpose: P + P, P + (-P), the point at infinity,
 Z != 1, and a point of order 13 on the twist (13^2 divides the cofactor
@@ -14,8 +17,8 @@ h2), on which a ladder meets those cases inside its run. Equality is exact
 (canonical words, or the verdict).
 """
 
-import os
-import re
+import copy
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +32,7 @@ from lighthouse_tpu_torch.bls.hash_to_curve import hash_to_field_fp2, iso_map, m
 from lighthouse_tpu_torch.crypto.constants import P, R
 from lighthouse_tpu_torch.crypto.ref_curve import G2 as RG2
 from lighthouse_tpu_torch.ops import batch_verify, cuda_build, curve, field as fd, subgroup
+from lighthouse_tpu_torch.ops import subgroup_rows
 
 # a point of order 13 on E'(Fp2): [h2 r / 169] of an SSWU point (the
 # 13-part of E'(Fp2) is Z/13 x Z/13)
@@ -218,87 +222,172 @@ def test_check_signature_subgroups_sets_every_memo(monkeypatch):
     assert gpu_backend.check_signature_subgroups([], device="cpu") == []
 
 
-# ------------------------------------------- the kernel's programs, emulated
-
-CU = os.path.join(os.path.dirname(cuda_build.CSRC), "csrc", "subgroup.cu")
-SLOT_NAMES = ["X1", "Y1", "Z1", "X2", "Y2", "Z2"] + [f"T{i}" for i in range(14)]
+# --------------------------------------------- the kernel's rows, emulated
 
 
-def _kernel_tables():
-    """R's words and the three step programs as subgroup.cu writes them."""
-    with open(CU) as f:
-        text = f.read()
-    r_words = re.search(r"R_W\[8\] = \{([^}]*)\}", text).group(1)
-    r = sum(int(w.strip().rstrip("u"), 16) << (32 * i) for i, w in enumerate(r_words.split(",")))
-    ops = {"MUL": 0, "ADD": 1, "SUB": 2, "SCL": 3}
-
-    def steps(body):
-        out = []
-        for op, d, a, b in re.findall(r"\{(\w+), (\w+), (\w+), (\w+)\}", body):
-            ref = (lambda t: SLOT_NAMES.index(t))
-            out.append((ops[op], ref(d), ref(a), int(b) if op == "SCL" else ref(b)))
-        return out
-
-    macro = re.search(r"#define LH_DOUBLE\(X, Y, Z\)(.*?)constexpr", text, re.S).group(1)
-    macro = macro.replace("\\", "")
-
-    def double(x, y, z):
-        return steps(macro.replace(" X,", f" {x},").replace(" X}", f" {x}}}")
-                     .replace(" Y,", f" {y},").replace(" Y}", f" {y}}}")
-                     .replace(" Z,", f" {z},").replace(" Z}", f" {z}}}"))
-
-    add = steps(re.search(r"ADD_GENERIC\[ADD_STEPS\] = \{(.*?)\};", text, re.S).group(1))
-    return r, double("X2", "Y2", "Z2"), double("X1", "Y1", "Z1"), add
+def _lane(pt):
+    """A Jacobian point (ref_curve coordinates) -> the emulator's lane: the
+    Montgomery ints X0, X1, Y0, Y1, Z0, Z1."""
+    return [c % P * (1 << 384) % P for coord in pt for c in coord]
 
 
-def _emulate(x, y, tables):
-    """The kernel's lane on Python integers: the slot file, the interpreter
-    and add_step's branches as subgroup.cu runs them."""
-    r, dbl_addend, dbl_acc, add = tables
-    F = RG2.F
-    f = [(0, 0)] * len(SLOT_NAMES)
-    f[3], f[4], f[5] = x, y, (1, 0)
-    f[0], f[1], f[2] = (1, 0), (1, 0), (0, 0)
-
-    def run(prog):
-        for op, d, a, b in prog:
-            if op == 0:
-                f[d] = F.mul(f[a], f[b])
-            elif op == 1:
-                f[d] = F.add(f[a], f[b])
-            elif op == 2:
-                f[d] = F.sub(f[a], f[b])
-            else:
-                f[d] = F.scalar(f[a], b)
-
-    n = r.bit_length()
-    for i in range(n):
-        if (r >> i) & 1:
-            if f[2] == (0, 0):
-                f[0], f[1], f[2] = f[3], f[4], f[5]
-            elif f[5] != (0, 0):
-                run(add)
-                if f[SLOT_NAMES.index("T6")] == (0, 0) and f[SLOT_NAMES.index("T7")] == (0, 0):
-                    run(dbl_acc)
-                else:
-                    f[0], f[1], f[2] = (f[SLOT_NAMES.index(t)] for t in ("T11", "T13", "T10"))
-        if i + 1 < n:
-            run(dbl_addend)
-    return f[2] == (0, 0)
+def _lanes(pt):
+    """Port bundles -> each lane's 6 Montgomery ints."""
+    ints = [fd.words_to_ints(w) for w in _port_words(pt)]  # lane-major, 2 components a lane
+    return [[ints[c][2 * lane + k] for c in range(3) for k in range(2)]
+            for lane in range(len(ints[0]) // 2)]
 
 
-def test_kernel_programs_emulated():
-    """subgroup.cu's r and its doubling and addition programs, run on
-    Python integers as the kernel runs them, give ref_curve's verdict;
-    the programs hold 7 and 16 Fp2 products, as `subgroup` counts them."""
-    tables = _kernel_tables()
-    r, dbl_addend, dbl_acc, add = tables
-    assert r == R
-    assert sum(op == 0 for op, *_ in dbl_addend) == subgroup.DOUBLE_PRODUCTS
-    assert sum(op == 0 for op, *_ in add) == subgroup.ADD_PRODUCTS
-    for p in _check_points():
-        x, y = RG2.to_affine(p)
-        assert _emulate(x, y, tables) == RG2.in_subgroup(p)
+def _plain_trace(accs, addends, bits):
+    """The plain ladder (`subgroup.ladder_step` on bundles): each bit's
+    (acc lanes, addend lanes)."""
+    acc, addend = _port(accs), _port(addends)
+    out = []
+    for bit in bits:
+        acc, addend = subgroup.ladder_step(acc, addend, bit)
+        out.append((_lanes(acc), _lanes(addend)))
+    return out
+
+
+def _assert_trace(trace, plain, lane, bits):
+    """The emulated lane equals the plain ladder, acc after every bit and
+    the addend after every bit but the last (whose doubling the kernel
+    skips)."""
+    for i, ((acc, addend), (p_acc, p_addend)) in enumerate(zip(trace, plain)):
+        assert acc == p_acc[lane], f"bit {i}: acc"
+        if i + 1 < len(bits):
+            assert addend == p_addend[lane], f"bit {i}: addend"
+
+
+def _ladder_cases():
+    """(acc, addend) pairs that meet every select: infinity on either side,
+    acc == addend (the doubling branch, order 13 at bits 4 and 5), acc ==
+    -addend, Z != 1 on either side, points off the subgroup."""
+    Q, g = _order13(), RG2.generator
+    return {
+        "order13": (INF, Q),
+        "order13_negated": (INF, RG2.neg(Q)),
+        "acc_equals_addend": (Q, Q),
+        "acc_is_minus_addend": (RG2.neg(Q), Q),
+        "order13_doubled": (INF, RG2.add(Q, Q)),
+        "addend_at_infinity": (Q, INF),
+        "both_at_infinity": (INF, INF),
+        "subgroup_z_not_1": (INF, _rescale(RG2.mul_scalar(g, 5), 7)),
+        "acc_z_not_1": (_rescale(RG2.mul_scalar(g, 3), 2), RG2.mul_scalar(g, 11)),
+        "sswu": (INF, _sswu(b"ladder", 1)[0]),
+    }
+
+
+def test_header_is_generated():
+    with open(subgroup_rows.HEADER) as f:
+        assert f.read() == subgroup_rows.header_text(), \
+            "regenerate: python -m lighthouse_tpu_torch.ops.subgroup_rows"
+
+
+def test_slot_map_passes_its_check_and_a_clobber_fails_it():
+    """Every program's slot map passes `check` (reads find the values the
+    formulas name, the phase rule, the test's slots, the persistent values
+    in place); a doubling row that writes over the addend before the
+    addition's last read of it fails."""
+    for prog in subgroup_rows.PROGRAMS.values():
+        subgroup_rows.check(prog)
+    prog = copy.deepcopy(subgroup_rows.PROGRAMS["FUSED"])
+    a = next(i for i, row in enumerate(prog.phases[0][1]) if row[0] == "a")  # a = X2^2
+    per = prog.rows[0][1]
+    for t, rows in enumerate(per):
+        for j, row in enumerate(rows):
+            if prog.sources[0][t][j] == a:
+                per[t][j] = (row[0], subgroup_rows.PERSISTENT.index("X2") * 2 + (row[1] & 1), *row[2:])
+    with pytest.raises(AssertionError):
+        subgroup_rows.check(prog)
+
+
+def test_row_product_counts():
+    """7 and 16 Fp2 products a doubling and an addition, 23 a fused set bit,
+    3,922 a lane over r; the warp's work in 24-word products and
+    reductions, 9 a clear bit and 28 a set bit (15 and 30 in whole rows)."""
+    rows = subgroup_rows
+    assert (rows.DOUBLE_PRODUCTS, rows.ADD_PRODUCTS) == (subgroup.DOUBLE_PRODUCTS,
+                                                        subgroup.ADD_PRODUCTS) == (7, 16)
+    assert rows.PROGRAMS["FUSED"].products() == 23 and rows.PROGRAMS["DBL_ACC"].products() == 7
+    assert rows.lane_rows() == 133 * 23 + 121 * 7 + 16 == 3_922
+    assert [rows.PROGRAMS[n].work() for n in ("DBL", "FUSED", "ADD", "DBL_ACC")] == [9, 28, 24, 9]
+    assert rows.lane_work() == 133 * 28 + 121 * 9 + 24 == 4_837
+    assert subgroup.row_products(2) == 2 * 3_922 * 2.5
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_cases():
+    """The plain ladder over 179's bits on every case, one batch."""
+    cases = _ladder_cases()
+    return _plain_trace([c[0] for c in cases.values()], [c[1] for c in cases.values()], LADDER_BITS)
+
+
+@pytest.mark.parametrize("case", list(_ladder_cases()))
+def test_emulated_lane_matches_plain_ladder(case):
+    """One lane of the kernel's rows, bit by bit over 179's bits, word for
+    word against the plain curve.J2 ladder."""
+    cases = _ladder_cases()
+    acc, addend = cases[case]
+    trace = subgroup_rows.emulate_lane(_lane(addend), LADDER_BITS, acc=_lane(acc))
+    _assert_trace(trace, _plain_cases(), list(cases).index(case), LADDER_BITS)
+
+
+def test_mixed_warp_matches_plain_ladder():
+    """A warp of seven subgroup points and one point of order 13: the warp
+    runs the doubling of acc where the order-13 lane needs it (bits 4 and
+    5), and every lane's words stay the plain ladder's."""
+    g = RG2.generator
+    addends = [RG2.mul_scalar(g, k) for k in (3, 4, 6, 7)] + [
+        _rescale(RG2.mul_scalar(g, k), 5) for k in (8, 9, 10)] + [_order13()]
+    stats = {}
+    traces = subgroup_rows.emulate_warp([_lane(p) for p in addends], LADDER_BITS, stats=stats)
+    plain = _plain_trace([INF] * len(addends), addends, LADDER_BITS)
+    for lane, trace in enumerate(traces):
+        _assert_trace(trace, plain, lane, LADDER_BITS)
+    assert stats["dbl_acc"] == 2
+
+
+@pytest.mark.parametrize("point", ["subgroup", "order13"])
+def test_emulated_rows_over_r_give_ref_verdict(point):
+    """Over all of r the kernel's rows give ref_curve.G2.in_subgroup, with
+    3,922 Fp2 products on a subgroup point."""
+    pt = RG2.mul_scalar(RG2.generator, 5) if point == "subgroup" else _order13()
+    x, y = RG2.to_affine(pt)
+    stats = {}
+    got = subgroup_rows.in_subgroup(tuple(_lane((x,))[:2]), tuple(_lane((y,))[:2]), stats)
+    assert got == RG2.in_subgroup(pt) == (point == "subgroup")
+    if point == "subgroup":
+        assert stats == {"products": 3_922}
+
+
+@pytest.mark.parametrize("kind", ["square_c0", "square_c1", "product_c0", "product_c1"])
+def test_half_row_wide_sums(kind):
+    """A half row's one or two 24-word products summed into T0 = p^2 + ..:
+    operands below 2p, T0 in [0, p 2^384), and its Montgomery reduction
+    (fp_product.reduce_words, the kernel's word for word) the component:
+    (A0 + A1)(A0 - A1) and 2 A0 A1 of a square, A0 B0 - A1 B1 and A0 B1 +
+    A1 B0 of a product."""
+    from lighthouse_tpu_torch.ops.fp_product import reduce_words
+
+    r_inv = pow(1 << 384, -1, P)
+    rng = np.random.default_rng(13)
+    rand = lambda: int.from_bytes(rng.bytes(48), "little") % P  # noqa: E731
+    cases = [[(P - 1) * ((k >> j) & 1) for j in range(4)] for k in range(16)]
+    cases += [[rand() for _ in range(4)] for _ in range(100)]
+    for a0, a1, b0, b1 in cases:
+        if kind == "square_c0":
+            terms, want = [(a0 + a1, (a0 - a1) % P, 1)], a0 * a0 - a1 * a1
+        elif kind == "square_c1":
+            terms, want = [(2 * a0, a1, 1)], 2 * a0 * a1
+        elif kind == "product_c0":
+            terms, want = [(a0, b0, 1), (a1, b1, -1)], a0 * b0 - a1 * b1
+        else:
+            terms, want = [(a0, b1, 1), (a1, b0, 1)], a0 * b1 + a1 * b0
+        assert all(x < 2 * P and y < 2 * P for x, y, _ in terms)
+        t = P * P + sum(sign * x * y for x, y, sign in terms)
+        assert 0 <= t < P << 384
+        assert reduce_words(t) == want * r_inv % P
 
 
 @pytest.mark.parametrize("lanes", [1, 30_720])

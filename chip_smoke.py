@@ -86,6 +86,28 @@ non-zero without its result line:
     output held on a 2,048-pair slice against K2 run on the slice alone and
     against its plain version; the flat batch's per-set check (a forged
     set, an infinity signature, 4 sets against the ref backend);
+ 7b. the guarded executor (device_plane.GUARD) on the card: the startup
+    self-test; the canary pair ([valid, invalid] sentinels through K2 and
+    K3's per-set entry) giving [True, False], with its device time; a
+    slot-sized dispatch under each injected fault kind at rate 1 (stall and
+    error raise their classes before any launch, slow_compile gives the
+    right verdict >= 50 ms later, a flip on the bus's canaried batch raises
+    CanaryViolation and quarantines the plane); the dispatch after the
+    quarantine refused with the call counts and launches still; the
+    half-open probe after a 0.5 s cooldown closing the breaker; a real
+    watchdog timeout (a 5 ms budget under the slot's wall) whose abandoned
+    attempt the reaper counts, with right verdicts after it;
+ 7c. bus_slot: the slot's 64 committees as 64 submissions of 480 sets to
+    one VerificationBus(backend="gpu") from 8 threads, canary on, all True;
+    then with one forged signature in committee 31, which alone is False;
+    walls, batches and triggers, mean live sets, fallback batches, canary
+    calls, beside the slot's direct single-call p50 of phase 5;
+ 7d. bus_singles (bench_busmix.py's shape): 512 gossip singles one after
+    another, then through the bus (30 ms hold) from 4 threads with its
+    consumer cycle: both walls, the per-verification speedup, batches,
+    mean live sets, the amortized fixed ms; then the wall model's per-set
+    cost, (slot p50 - fixed dispatch cost) / 30,720, beside the constant in
+    verification_bus/wall_model.py;
  8. the tensor-core probe (lighthouse_tpu_torch.ops.mma_probe), int8 and
     bf16, exact against the probe's numpy check and the plain version,
     kernel and library call timed the same way (and each once more in one
@@ -103,6 +125,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -120,6 +143,10 @@ BATCH_KERNELS = ("ladder_g1", "ladder_g2", "miller", "fold_final_exp",
                  "lane_sum_g1", "lane_sum_g2", "to_affine_g1", "to_affine_g2",
                  "jacobian_to_affine_g2")
 POINT_PATH_KERNELS = ("jacobian_to_affine_g1",)
+# one-key flat batches (gossip singles through the bus) fold no key lanes;
+# the bus's canary pair runs K3's per-set entry
+SINGLES_KERNELS = tuple(k for k in BATCH_KERNELS if k != "lane_sum_g1") + POINT_PATH_KERNELS + (
+    "pair_final_exp",)
 
 # a point of order 13 on the twist E'(Fp2), affine (x0, x1, y0, y1): [h2 r / 169]
 # of an SSWU point (tests/test_torch_subgroup.py)
@@ -159,6 +186,11 @@ def main() -> int:
     from lighthouse_tpu_torch.ops import window_ladder
     from lighthouse_tpu_torch.bls.hash_to_curve import hash_to_field_fp2, iso_map, map_to_curve_sswu
     from lighthouse_tpu_torch.common import device_attribution
+    from lighthouse_tpu_torch.common.events_journal import Journal
+    from lighthouse_tpu_torch.device_plane import GUARD, INJECTOR, canary, executor
+    from lighthouse_tpu_torch.device_plane.executor import (
+        CanaryViolation, DeviceErrorInjected, DeviceFaultError, DeviceStallInjected, DeviceTimeout)
+    from lighthouse_tpu_torch.verification_bus import VerificationBus, wall_model
     from lighthouse_tpu_torch.crypto.ref_curve import G1 as RG1
     from lighthouse_tpu_torch.crypto.ref_curve import G2 as RG2
 
@@ -572,6 +604,7 @@ def main() -> int:
         missing = [k for k in kernels if launches[k] == 0]
         assert not missing, f"{label}: the path launched no {missing}"
         p50 = statistics.median(walls)
+        e2e_p50_s[label] = p50
         if not probes:
             emit("end_to_end", batch=label, sets=len(sets), verdict=ok, first_call_s=first_s,
                  p50_s=p50, sets_per_s=len(sets) / p50, walls_s=walls, host_stats=stats,
@@ -591,6 +624,7 @@ def main() -> int:
              host_split_p50=split, launches=launches)
         return launches
 
+    e2e_p50_s = {}
     slot_launches = e2e("grouped", slot, 10)
     flat_launches = e2e("flat", flat, 20, kernels=BATCH_KERNELS + POINT_PATH_KERNELS)
 
@@ -875,6 +909,242 @@ def main() -> int:
     emit("per_set", batch="flat", sets=len(flat_bad), flagged=[100, 512], ref_cross_check=True,
          wall_s=flat_wall, host_stats=dict(gpu_backend.LAST_HOST_STATS),
          launches=flat_per_set_launches)
+
+    # ------------------------------------ 7b. the guarded executor (guard)
+    # every device verify crosses device_plane.GUARD; on the card: the
+    # startup self-test, the canary pair on K2 and K3's per-set entry, each
+    # injected fault kind on a slot-sized dispatch, the quarantine that
+    # keeps the card untouched, the half-open recovery, and a real watchdog
+    # timeout whose abandoned attempt the reaper counts
+    GUARD.reset()
+    INJECTOR.reset()
+    GUARD.configure(cooldown_s=0.5)
+    journal = Journal()
+    guard = {"selftest": GUARD.self_test(("bls",), journal=journal)}
+    assert guard["selftest"] == {"bls": True}, guard
+    cuda_build.reset_launches()
+    pair = canary.check_pair("gpu")
+    pair_launches = dict(cuda_build.LAUNCHES)
+    assert pair == [True, False], pair
+    missing = [k for k in ("miller", "pair_final_exp") if pair_launches[k] == 0]
+    assert not missing, f"guard: the canary pair launched no {missing}"
+    pair_walls, pair_device = [], []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        canary.check_pair("gpu")
+        pair_walls.append((time.perf_counter() - t0) * 1e3)
+        pair_device.append(gpu_backend.LAST_HOST_STATS["device_ms"])
+    guard["canary_pair"] = {"verdicts": pair, "launches": pair_launches,
+                            "wall_ms_p50": statistics.median(pair_walls),
+                            "device_ms_p50": statistics.median(pair_device),
+                            "device_ms": pair_device}
+    assert api.verify_signature_sets(slot, seed=70, device="cuda")
+    base_device_ms = gpu_backend.LAST_HOST_STATS["device_ms"]
+    injected = {}
+    for kind, exc in (("stall", DeviceStallInjected), ("error", DeviceErrorInjected)):
+        INJECTOR.arm(kind, "bls", rate=1.0, seed=1)
+        calls = dict(gpu_backend.CALL_COUNTS)
+        try:
+            api.verify_signature_sets(slot, seed=71, device="cuda")
+            raise AssertionError(f"guard: {kind} injected, no fault raised")
+        except exc as e:
+            injected[kind] = {"raised": type(e).__name__, "card_untouched": gpu_backend.CALL_COUNTS == calls}
+        INJECTOR.reset()
+        assert injected[kind]["card_untouched"], injected
+    INJECTOR.arm("slow_compile", "bls", rate=1.0, seed=1)
+    t0 = time.perf_counter()
+    ok = api.verify_signature_sets(slot, seed=72, device="cuda")
+    slow_wall_ms = (time.perf_counter() - t0) * 1e3
+    slow_device_ms = gpu_backend.LAST_HOST_STATS["device_ms"]
+    INJECTOR.reset()
+    injected["slow_compile"] = {"verdict": ok, "wall_ms": slow_wall_ms, "device_ms": slow_device_ms,
+                                "device_ms_uninjected": base_device_ms}
+    assert ok is True and slow_device_ms >= 50.0, injected
+    # a flip on the bus's canaried batch: the pair comes back flipped
+    INJECTOR.arm("flip", "bls", rate=1.0, seed=1)
+    flip_bus = VerificationBus(backend="gpu", journal=journal)
+    try:
+        flip_bus.submit(slot, consumer="bench")
+        raise AssertionError("guard: a flip on the canaried batch went unseen")
+    except CanaryViolation as e:
+        injected["flip"] = {"raised": type(e).__name__}
+    INJECTOR.reset()
+    guard["quarantined"] = GUARD.breaker.snapshot()
+    assert guard["quarantined"].get("bls/*") == "open", guard
+    injected["flip"]["quarantine"] = "open"
+    guard["injected"] = injected
+    # quarantined: the next dispatch of any bucket is refused untouched
+    calls = dict(gpu_backend.CALL_COUNTS)
+    cuda_build.reset_launches()
+    try:
+        api.verify_signature_sets(slot[:4], seed=73, device="cuda")
+        raise AssertionError("guard: a quarantined plane reached the card")
+    except DeviceFaultError as e:
+        guard["after_quarantine"] = {"raised": type(e).__name__, "message": str(e),
+                                     "call_counts_moved": gpu_backend.CALL_COUNTS != calls,
+                                     "launches": sum(cuda_build.LAUNCHES.values())}
+    assert not guard["after_quarantine"]["call_counts_moved"] and not guard["after_quarantine"]["launches"]
+    # the cooldown (0.5 s here) turns the key half-open: one probe, which
+    # succeeds and closes it
+    time.sleep(0.6)
+    assert api.verify_signature_sets(slot, seed=74, device="cuda") is True
+    guard["recovered"] = {"state": GUARD.breaker.snapshot(),
+                          "transitions": GUARD.stats()["transitions"]}
+    assert guard["recovered"]["state"].get("bls/*") == "closed", guard["recovered"]
+    assert GUARD.stats()["transitions"].get("bls:half_open") == 1
+    # a real watchdog timeout: a 5 ms budget under the slot batch's wall
+    GUARD.configure(base_timeout_s=0.005, timeout_factor=1.0, min_timeout_s=0.001)
+    t0 = time.perf_counter()
+    try:
+        api.verify_signature_sets(slot, seed=75, device="cuda")
+        raise AssertionError("guard: the slot finished inside 5 ms")
+    except DeviceTimeout as e:
+        guard["timeout"] = {"raised": type(e).__name__, "caller_s": time.perf_counter() - t0}
+    GUARD.configure(base_timeout_s=executor.DEFAULT_BASE_TIMEOUT_S,
+                    timeout_factor=executor.DEFAULT_TIMEOUT_FACTOR,
+                    min_timeout_s=executor.DEFAULT_MIN_TIMEOUT_S)
+    t0 = time.perf_counter()
+    after = api.verify_signature_sets(slot, seed=76, device="cuda")
+    guard["timeout"]["next_verdict"] = after
+    guard["timeout"]["next_wall_s"] = time.perf_counter() - t0
+    forged_after = api.verify_signature_sets(T.forge(slot, 100), seed=77, device="cuda")
+    deadline = time.monotonic() + 30.0
+    while GUARD.stats()["reaped"] < 1 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    st = GUARD.stats()
+    guard["timeout"].update(reaped=st["reaped"], abandoned=st["abandoned"], forged_after=forged_after)
+    assert after is True and forged_after is False and st["reaped"] == 1 and st["abandoned"] == 0, guard
+    guard["stats"] = st
+    guard["journal"] = [(e["outcome"], e["attrs"].get("fault")) for e in journal.query(kind="device_fault")]
+    print(smi, flush=True)
+    emit("guard", **guard)
+    GUARD.reset()
+
+    # --------------------------------------- 7c. the bus on a full slot
+    # the slot's 64 committees as 64 submissions of 480 sets (consumer
+    # oppool) to one VerificationBus(backend="gpu") from 8 threads, canary
+    # on; the sentinel pair's keys are registered in the table, so the
+    # batches stay indexed
+    table.append([s.pubkeys[0] for s in canary.bls_sentinels()])
+    committees = [slot[g * COMMITTEE:(g + 1) * COMMITTEE] for g in range(N_COMMITTEES)]
+
+    def bus_round(subs, threads=8):
+        bus = VerificationBus(backend="gpu", journal=Journal())
+        verdicts = [None] * len(subs)
+        errors = []
+
+        def worker(tid):
+            for g in range(tid, len(subs), threads):
+                try:
+                    verdicts[g] = bus.submit(subs[g], consumer="oppool")
+                except Exception as e:  # a fault fails the phase below
+                    errors.append(repr(e))
+
+        calls = dict(gpu_backend.CALL_COUNTS)
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        ths = [threading.Thread(target=worker, args=(t,)) for t in range(threads)]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join()
+        wall = time.perf_counter() - t0
+        launches = dict(cuda_build.LAUNCHES)
+        st = bus.stats()
+        return {"verdicts": verdicts, "errors": errors, "wall_s": wall, "launches": launches,
+                "batches_formed": st["batches_formed"], "triggers": st["triggers"],
+                "mean_live_per_batch": st["mean_live_per_batch"],
+                "coalesced_batches": st["coalesced_batches"],
+                "fallback_batches": st["fallback_batches"],
+                "canary_calls": gpu_backend.CALL_COUNTS["individual"] - calls["individual"],
+                "batch_calls": gpu_backend.CALL_COUNTS["batch"] - calls["batch"],
+                "wall_model": st["wall_model"]}
+
+    valid = bus_round(committees)
+    assert not valid["errors"] and valid["verdicts"] == [True] * N_COMMITTEES, valid["errors"]
+    missing = [k for k in BATCH_KERNELS + ("pair_final_exp",) if valid["launches"][k] == 0]
+    assert not missing, f"bus_slot: the path launched no {missing}"
+    bad_at = 31 * COMMITTEE + 123
+    bad_committees = list(committees)
+    bad_committees[31] = T.forge(slot, bad_at)[31 * COMMITTEE:32 * COMMITTEE]
+    forged = bus_round(bad_committees)
+    assert not forged["errors"], forged["errors"]
+    assert [g for g, v in enumerate(forged["verdicts"]) if v is not True] == [31], forged["verdicts"]
+    assert forged["verdicts"][31] is False
+    for r in (valid, forged):
+        r.pop("verdicts")
+    records["bus_slot"] = {"submissions": N_COMMITTEES, "sets_each": COMMITTEE, "threads": 8,
+                           "valid": valid, "forged_committee": 31, "forged": forged,
+                           "direct_slot_p50_s": e2e_p50_s["grouped"]}
+    print(smi, flush=True)
+    emit("bus_slot", **records["bus_slot"])
+
+    # ------------------------------ 7d. gossip singles (bench_busmix.py)
+    # 512 singles over 8 interop keys: one after another, each its own
+    # dispatch, then through the bus (bench_busmix's 30 ms hold) from 4
+    # threads with its consumer cycle
+    N_SINGLES, BUS_THREADS = 512, 4
+    CONSUMER_CYCLE = ("gossip_single", "sidecar_header", "oppool")
+    kps = api.interop_keypairs(8)
+    singles = [api.SignatureSet(kp.sk.sign(f"busmix:{i}".encode()), [kp.pk], f"busmix:{i}".encode())
+               for i, kp in enumerate(kps)]
+    assert api.verify_signature_sets([singles[0]], device="cuda", consumer="bench")
+    amort0 = device_attribution.amortized_totals()
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    for i in range(N_SINGLES):
+        assert api.verify_signature_sets([singles[i % 8]], device="cuda", consumer="bench")
+    direct_wall = time.perf_counter() - t0
+    direct_launches = dict(cuda_build.LAUNCHES)
+    direct_amort = sum(v - amort0.get(k, 0.0) for k, v in device_attribution.amortized_totals().items()
+                       if k[0] == "bench")
+    bus = VerificationBus(backend="gpu", max_hold_ms=30.0)
+    amort1 = device_attribution.amortized_totals()
+    per_thread = N_SINGLES // BUS_THREADS
+    results = []
+
+    def single_worker(tid):
+        for i in range(per_thread):
+            results.append(bus.submit([singles[(tid * per_thread + i) % 8]],
+                                      consumer=CONSUMER_CYCLE[(tid + i) % len(CONSUMER_CYCLE)]))
+
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    ths = [threading.Thread(target=single_worker, args=(t,)) for t in range(BUS_THREADS)]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join()
+    bus_wall = time.perf_counter() - t0
+    bus_launches = dict(cuda_build.LAUNCHES)
+    assert results == [True] * N_SINGLES, results.count(False)
+    missing = [k for k in SINGLES_KERNELS if bus_launches[k] == 0]
+    assert not missing, f"bus_singles: the path launched no {missing}"
+    bus_amort = sum(v - amort1.get(k, 0.0) for k, v in device_attribution.amortized_totals().items()
+                    if k[0] in CONSUMER_CYCLE)
+    st = bus.stats()
+    records["bus_singles"] = {
+        "singles": N_SINGLES, "threads": BUS_THREADS, "max_hold_ms": 30.0,
+        "direct_wall_s": direct_wall, "bus_wall_s": bus_wall,
+        "speedup_per_verification": (direct_wall / N_SINGLES) / (bus_wall / N_SINGLES),
+        "direct_amortized_fixed_ms": direct_amort, "bus_amortized_fixed_ms": bus_amort,
+        "batches_formed": st["batches_formed"], "mean_live_per_batch": st["mean_live_per_batch"],
+        "coalesced_batches": st["coalesced_batches"], "triggers": st["triggers"],
+        "deadline_misses": st["deadline_misses"], "wall_model": st["wall_model"],
+        "direct_launches": direct_launches, "bus_launches": bus_launches,
+    }
+    print(smi, flush=True)
+    emit("bus_singles", **records["bus_singles"])
+
+    # the wall model's per-set cost on the card: the slot's single-call
+    # wall p50 less the fixed cost of one dispatch, a set
+    per_set_s = (e2e_p50_s["grouped"] - records["ingest"]["fixed_dispatch_ms"] / 1e3) / len(slot)
+    records["wall_model"] = {"per_set_cost_s": per_set_s, "in_code_s": wall_model.PER_SET_COST_S,
+                             "fixed_ms": records["ingest"]["fixed_dispatch_ms"],
+                             "fixed_in_code_ms": device_attribution.FIXED_DEVICE_COST_MS,
+                             "slot_p50_s": e2e_p50_s["grouped"], "sets": len(slot)}
+    print(smi, flush=True)
+    emit("wall_model", **records["wall_model"])
 
     # ------------------------------------------- 8. tensor-core probe
     probe = {form: mma_probe.probe(form, dev) for form in mma_probe.FORMS}

@@ -45,11 +45,29 @@ Each batch is attributed to its consumer (`common/device_attribution.py`:
 lanes, padding, device seconds) and traced (`common/tracing.py`: the
 reference's `verify/*` spans).
 
+Every device verify crosses the guarded executor
+(`device_plane.GUARD.dispatch("bls", bucket, attempt)`, as the reference's
+`tpu_backend.py` does): the breaker first, then the attempt on a watchdog
+thread, with the seeded injection plan. The attempt calls
+`plan.raise_if_faulted()` before any launch and routes what the card
+computed through `plan.verdict`; the host policy, marshalling and
+attribution stay outside it (the streamed path marshals batch N+1 inside
+its one attempt, which is what lets it overlap batch N). A fault reaches
+the caller as a `DeviceFaultError`; there is no failover.
+
+The attempts may run on several threads at once (the bus flushes on its
+submitters' threads, the watchdog runs each attempt on a thread of its
+own). The device work of an attempt -- uploads, launches, the verdict's
+read, the call counts -- runs under one lock per device (`_device_lock`),
+so concurrent calls launch one after another, each on the current stream
+of the thread that holds the lock.
+
 `device="cuda"` runs the CUDA kernels and raises when there is no GPU;
 `device="cpu"` runs their plain PyTorch versions (the tests).
 """
 
 import secrets
+import threading
 import time
 
 import numpy as np
@@ -60,6 +78,7 @@ from lighthouse_tpu_torch.bls.hash_to_curve import hash_to_g2
 from lighthouse_tpu_torch.common import device_attribution as attribution
 from lighthouse_tpu_torch.common.tracing import span
 from lighthouse_tpu_torch.crypto.ref_curve import G2 as G2_GROUP
+from lighthouse_tpu_torch.device_plane.executor import GUARD
 from lighthouse_tpu_torch.ops import batch_verify, curve_kernels, field as fd, subgroup
 
 # host/device split of the last dispatched batch
@@ -71,6 +90,16 @@ LAST_STREAM_STATS: dict = {}
 
 # device calls dispatched: RLC batches and per-set fallbacks
 CALL_COUNTS = {"batch": 0, "individual": 0}
+
+_stats_lock = threading.Lock()
+_device_locks: dict = {}
+
+
+def _device_lock(dev: torch.device) -> threading.RLock:
+    """The lock that serialises the device work of concurrent calls on
+    `dev`."""
+    with _stats_lock:
+        return _device_locks.setdefault(str(dev), threading.RLock())
 
 
 def _bucket(n: int, minimum: int) -> int:
@@ -374,22 +403,32 @@ def _read_later(ok: torch.Tensor):
     return read
 
 
+def _shape_key(m) -> str:
+    """The breaker's bucket: the (set, key) bucket class of the marshalled
+    batch, `tpu_backend._shape_key`'s string."""
+    if m.grouped:
+        g_b, sg_b = m.set_mask.shape
+        return f"g{g_b}x{sg_b}k{m.k_bucket}"
+    return f"s{m.s_bucket}k{m.k_bucket}"
+
+
 def _record_stats(n_sets, m, t_start, t_subgroup, t_marshal, t_end, individual) -> None:
-    LAST_HOST_STATS.clear()
-    LAST_HOST_STATS.update(
-        {
-            "n_sets": n_sets,
-            "individual": individual,
-            "indexed_path": m.table is not None,
-            "grouped": bool(m.grouped),
-            "n_groups": m.n_groups,
-            "subgroup_ms": (t_subgroup - t_start) * 1e3,
-            "points_ms": m.timings["points_ms"],
-            "pack_ms": m.timings["pack_ms"],
-            "host_ms": (t_marshal - t_start) * 1e3,
-            "device_ms": (t_end - t_marshal) * 1e3,
-        }
-    )
+    with _stats_lock:
+        LAST_HOST_STATS.clear()
+        LAST_HOST_STATS.update(
+            {
+                "n_sets": n_sets,
+                "individual": individual,
+                "indexed_path": m.table is not None,
+                "grouped": bool(m.grouped),
+                "n_groups": m.n_groups,
+                "subgroup_ms": (t_subgroup - t_start) * 1e3,
+                "points_ms": m.timings["points_ms"],
+                "pack_ms": m.timings["pack_ms"],
+                "host_ms": (t_marshal - t_start) * 1e3,
+                "device_ms": (t_end - t_marshal) * 1e3,
+            }
+        )
 
 
 def _policy_ok(sets) -> bool:
@@ -415,9 +454,14 @@ def verify_signature_sets_gpu(
     t_subgroup = time.perf_counter()
     m, rand_bits = _marshal_batch(sets, seed)
     t_marshal = time.perf_counter()
-    with span("verify/device", s_bucket=m.s_bucket, grouped=bool(m.grouped),
-              indexed=m.table is not None):
-        result = _force(_launch(m, rand_bits, dev, ladder))
+
+    def attempt(plan):
+        plan.raise_if_faulted()
+        with span("verify/device", s_bucket=m.s_bucket, grouped=bool(m.grouped),
+                  indexed=m.table is not None), _device_lock(dev):
+            return bool(plan.verdict(_force(_launch(m, rand_bits, dev, ladder))))
+
+    result = GUARD.dispatch("bls", _shape_key(m), attempt)
     t_end = time.perf_counter()
     attribution.note_batch(consumer, "bls", lanes=m.s_bucket, live=len(sets),
                            duration_s=t_end - t_marshal)
@@ -440,14 +484,20 @@ def verify_signature_sets_gpu_individual(sets, device="cuda", consumer=None) -> 
     with span("verify/marshal", n_sets=len(live)):
         m = _marshal_flat([sets[i] for i in live], pow2=False)
     t_marshal = time.perf_counter()
-    CALL_COUNTS["individual"] += 1
-    with span("verify/device", s_bucket=m.s_bucket, individual=True):
-        ok = batch_verify.verify_signature_sets_individual(
-            tuple(_to_device(c, dev) for c in m.msgs),
-            tuple(_to_device(c, dev) for c in m.sigs),
-            _pubkeys(m, dev), _to_device(m.key_mask, dev), _to_device(m.set_mask, dev),
-            device=dev,
-        ).tolist()
+
+    def attempt(plan):
+        plan.raise_if_faulted()
+        with span("verify/device", s_bucket=m.s_bucket, individual=True), _device_lock(dev):
+            CALL_COUNTS["individual"] += 1
+            ok = batch_verify.verify_signature_sets_individual(
+                tuple(_to_device(c, dev) for c in m.msgs),
+                tuple(_to_device(c, dev) for c in m.sigs),
+                _pubkeys(m, dev), _to_device(m.key_mask, dev), _to_device(m.set_mask, dev),
+                device=dev,
+            ).tolist()
+        return list(plan.verdict([bool(v) for v in ok]))
+
+    ok = GUARD.dispatch("bls", _shape_key(m), attempt)
     t_end = time.perf_counter()
     for j, i in enumerate(live):
         verdicts[i] = bool(ok[j])
@@ -464,38 +514,57 @@ def verify_signature_set_batches_gpu(
     launched while batch N runs on the card, and N's verdict is read only
     then. Batch bi takes seed `seed + bi`; an empty batch, or one whose
     signatures fail the policy, is False and never launched. On the CPU the
-    same loop runs without the overlap."""
+    same loop runs without the overlap.
+
+    The whole stream is ONE guarded crossing (bucket "stream"): a watchdog
+    a batch would serialise exactly the overlap the stream exists for.
+    Every device-produced verdict goes through the plan."""
     dev = resolve_device(device)
     t_wall0 = time.perf_counter()
     results = [None] * len(batches)
-    pending = None  # (batch index, the read of its verdict)
-    host_s = 0.0
-    dispatched = 0
+    live = []
     for bi, sets in enumerate(batches):
         if not sets or not _policy_ok(sets):
             results[bi] = False
-            continue
-        t0 = time.perf_counter()
-        m, rand_bits = _marshal_batch(sets, None if seed is None else seed + bi)
-        host_s += time.perf_counter() - t0
-        ok = _launch(m, rand_bits, dev, ladder)
-        # no duration: with the overlap a batch's device time is not seen
-        # alone; the whole call's wall is observed once below
-        attribution.note_batch(consumer, "bls", lanes=m.s_bucket, live=len(sets))
-        dispatched += 1
-        read = _read_later(ok)
-        if pending is not None:
-            results[pending[0]] = pending[1]()
-        pending = (bi, read)
-    if pending is not None:
-        results[pending[0]] = pending[1]()
+        else:
+            live.append(bi)
+    stream = {"host_s": 0.0, "noted": []}
+
+    def attempt(plan):
+        plan.raise_if_faulted()
+        out = {}
+        stream["host_s"] = 0.0
+        stream["noted"] = []
+        pending = None  # (batch index, the read of its verdict)
+        with _device_lock(dev):
+            for bi in live:
+                sets = batches[bi]
+                t0 = time.perf_counter()
+                m, rand_bits = _marshal_batch(sets, None if seed is None else seed + bi)
+                stream["host_s"] += time.perf_counter() - t0
+                read = _read_later(_launch(m, rand_bits, dev, ladder))
+                stream["noted"].append((m.s_bucket, len(sets)))
+                if pending is not None:
+                    out[pending[0]] = bool(plan.verdict(pending[1]()))
+                pending = (bi, read)
+            if pending is not None:
+                out[pending[0]] = bool(plan.verdict(pending[1]()))
+        return out
+
+    if live:
+        for bi, ok in GUARD.dispatch("bls", "stream", attempt).items():
+            results[bi] = ok
+    # no duration a batch: with the overlap a batch's device time is not
+    # seen alone; the whole call's wall is observed once below
+    for lanes, n in stream["noted"]:
+        attribution.note_batch(consumer, "bls", lanes=lanes, live=n)
     wall_ms = (time.perf_counter() - t_wall0) * 1e3
-    if dispatched:
+    if live:
         attribution.observe_seconds(consumer, "bls", wall_ms / 1e3)
     LAST_STREAM_STATS.clear()
     LAST_STREAM_STATS.update(
-        {"batches": len(batches), "dispatched": dispatched,
-         "host_marshal_ms": host_s * 1e3, "wall_ms": wall_ms}
+        {"batches": len(batches), "dispatched": len(live),
+         "host_marshal_ms": stream["host_s"] * 1e3, "wall_ms": wall_ms}
     )
     return results
 
@@ -510,7 +579,7 @@ def check_signature_subgroups(sigs, device="cuda") -> list:
     sigs = list(sigs)
     if not sigs:
         return []
-    with span("verify/subgroup_check", n_sets=len(sigs), device=dev.type):
+    with span("verify/subgroup_check", n_sets=len(sigs), device=dev.type), _device_lock(dev):
         words = _pack_jacobian([s.point for s in sigs], 2)
         jac = tuple(batch_verify._lanes(_to_device(c, dev), dev) for c in words)
         x, y, inf = curve_kernels.jacobian_to_affine(jac)

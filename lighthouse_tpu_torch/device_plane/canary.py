@@ -1,0 +1,115 @@
+"""Known-answer sentinel material for canary-verified device batches.
+
+The port of `lighthouse_tpu/device_plane/canary.py`, on the `bls` plane
+(the `kzg` and `merkle_proof` planes come with their slices of the port).
+The only way to catch a card that COMPLETES but LIES is to keep asking it
+questions whose answers are known: one sentinel that must verify and one
+that must not. The port keeps its own copy of the reference's committed
+bls pair (`tests/vectors/sentinel/bls/{valid,invalid}.json`, interop
+keypair 0 over a fixed message, the invalid one with a tampered message)
+in `sentinel_bls.json` beside this module. Two uses:
+
+  * the verification bus splices the VALID sentinel into every canaried
+    shared batch (an attribution-free extra set) and checks the
+    (valid, invalid) PAIR per set inside the same guarded attempt
+    (`check_pair`): on the card that is K2, then K3's per-set entry. A
+    batch verdict can only be trusted if the pair comes back exactly
+    (True, False): a flipped or stuck verdict plane fails that check,
+    raises `CanaryViolation` and quarantines the plane;
+  * the startup self-test (`GUARD.self_test`) runs `self_test_plane`
+    against the host oracle, so a node never goes live with corrupt
+    sentinel material or a broken oracle path.
+"""
+
+import json
+import os
+import threading
+
+from lighthouse_tpu_torch.device_plane.executor import (
+    NULL_PLAN,
+    CanaryViolation,
+)
+
+PLANES = ("bls",)
+
+SENTINEL_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "sentinel_bls.json")
+
+_lock = threading.Lock()
+_bls_sets: tuple | None = None
+
+
+def bls_vectors() -> dict:
+    """{"valid": case, "invalid": case}, each {"pubkeys", "message",
+    "signature"} as hex, as the reference commits them."""
+    with open(SENTINEL_FILE) as f:
+        return json.load(f)
+
+
+def bls_sentinels() -> tuple:
+    """(valid_set, invalid_set) as `SignatureSet`s — the valid one is
+    spliced into canaried shared batches, the pair feeds `check_pair`."""
+    global _bls_sets
+    with _lock:
+        if _bls_sets is not None:
+            return _bls_sets
+    from lighthouse_tpu_torch import bls
+
+    cases = bls_vectors()
+    sets = tuple(
+        bls.SignatureSet(
+            bls.Signature.from_bytes(bytes.fromhex(cases[name]["signature"])),
+            [bls.PublicKey.from_bytes(bytes.fromhex(p)) for p in cases[name]["pubkeys"]],
+            bytes.fromhex(cases[name]["message"]),
+        )
+        for name in ("valid", "invalid")
+    )
+    with _lock:
+        _bls_sets = sets
+    return _bls_sets
+
+
+def check_pair(backend: str, plan=NULL_PLAN, device="cuda") -> list:
+    """Verify the (valid, invalid) sentinel pair per set on `backend`,
+    verdicts routed through the dispatch's injection plan (so an
+    injected flip flips the canary too — by construction every flip is
+    caught). Anything but exactly [True, False] raises `CanaryViolation`;
+    returns the verdicts.
+
+    On "gpu" this is one extra per-set device call per canaried batch
+    (`verify_signature_sets_gpu_individual` on `device`: K2, then K3's
+    per-set entry) — the price of catching FALSE-ACCEPTS, which the
+    batch-riding valid sentinel cannot see. Sentinel sets stay out of
+    the consumers' attribution (no note_sets, no journal n_sets)."""
+    valid, invalid = bls_sentinels()
+    if backend == "gpu":
+        from lighthouse_tpu_torch.bls.gpu_backend import verify_signature_sets_gpu_individual
+
+        verdicts = [
+            bool(v)
+            for v in verify_signature_sets_gpu_individual(
+                [valid, invalid], device=device, consumer="bench"
+            )
+        ]
+    else:
+        from lighthouse_tpu_torch.bls.api import _verify_one_ref
+
+        verdicts = [_verify_one_ref(valid), _verify_one_ref(invalid)]
+    verdicts = list(plan.verdict(verdicts))
+    if verdicts != [True, False]:
+        raise CanaryViolation(
+            f"bls sentinel pair came back {verdicts} on backend "
+            f"{backend!r} (expected [True, False]) — the device plane "
+            "is producing wrong verdicts"
+        )
+    return verdicts
+
+
+def self_test_plane(plane: str) -> bool:
+    """Host-oracle known-answer check for one plane: the valid sentinel
+    must pass, the invalid one must fail."""
+    if plane == "bls":
+        from lighthouse_tpu_torch.bls.api import _verify_one_ref
+
+        valid, invalid = bls_sentinels()
+        return _verify_one_ref(valid) and not _verify_one_ref(invalid)
+    raise ValueError(f"no self-test for plane {plane!r} in the port (planes: {PLANES})")

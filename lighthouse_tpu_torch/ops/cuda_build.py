@@ -107,6 +107,13 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def loaded() -> bool:
+    """Has this process loaded a kernel library? The first load builds
+    every stale source (`build_all`), so after it no launch waits for
+    nvcc."""
+    return bool(_libs)
+
+
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:

@@ -33,8 +33,10 @@ non-zero without its result line:
     kernel first), exact equality of canonical words;
     each kernel's device time (cuda_build.time_ms: calls queued behind a
     device-side sleep, so the host's wrapper work is not counted), the
-    plain version's time and the bound (K1's window body: the products of
-    the rows its lanes run, ops/ladder_rows.py `lane_products`); then K1's window body on
+    plain version's time and the bound (K1's window body: the products
+    that the live lanes need at their scalars' widths,
+    ops/ladder_rows.py `window_steps_needed`, with the rows every lane
+    runs, `lane_products`, kept as bound_rows_ms); then K1's window body on
     an edge batch of 256 lanes a group (identity points, zero digits,
     every digit +8 or -8, the top window's carry, mixed signs); and the
     helpers on an edge batch (Jacobian Z != 1, Z = 1, identity and padding
@@ -108,12 +110,34 @@ non-zero without its result line:
     mean live sets, the amortized fixed ms; then the wall model's per-set
     cost, (slot p50 - fixed dispatch cost) / 30,720, beside the constant in
     verification_bus/wall_model.py;
+ 7e. kzg: the KZG slice at mainnet width (4,096 field elements a blob, 6
+    blobs a block): dev_setup(4096) and its packed window table (host
+    seconds of each); six seeded blobs' commitments and proofs through
+    backend="gpu", blob 0's byte-equal to backend="ref", the fixed-base
+    MSM's device time; the variable-base MSM (kzg.gpu_backend.g1_msm_gpu)
+    on tests/vectors/kzg/msm/full_4096.json equal to its output; the
+    block's batch verify True, a tampered blob False, two swapped proofs
+    False, one blob True, the ref backend True on the six, with the
+    host/device split (challenges, evaluation, decompression with the
+    subgroup checks, packing, device) and the host's decompression and
+    subgroup check of one point; launches and the plain versions' Fp
+    product count read around one verify and one MSM of each form (the
+    exact launches of KZG_*_LAUNCHES, no plain product); K1 at 64 windows,
+    the folds at seg 2b, 4,096 and 64, to_affine, K2 and K3's fold at 2
+    pairs, each exactly against its plain version (the Horner ladder's
+    bound one chain of 252 doublings and 63 additions); K1 at 255 bits on an
+    edge batch (0, 1, r - 1, 2^254, 2^255 - 1, every digit -8 or +8,
+    identity lanes) against its plain version and ref_curve; an injected
+    error on the kzg plane raising before any launch, the next verify
+    right, and the kzg self-test;
  8. the tensor-core probe (lighthouse_tpu_torch.ops.mma_probe), int8 and
     bf16, exact against the probe's numpy check and the plain version,
     kernel and library call timed the same way (and each once more in one
     synchronised call, cuda_build.call_ms, which shows the host's share of
     a few-microsecond call); its launches are those of one `contract` call;
- 9. the kernels line, then {"ok": true, "device": {...}} as the last line.
+ 9. the kernels line (the kernels of the kzg path carry a "kzg" record at
+    its shapes, with its launches), then {"ok": true, "device": {...}} as
+    the last line.
 
 The kernel records also go to chiprun_out/chip_smoke_records.json.
 
@@ -122,6 +146,7 @@ Without a CUDA device the script exits 2 and prints no result.
 
 import json
 import os
+import random
 import statistics
 import subprocess
 import sys
@@ -147,6 +172,14 @@ POINT_PATH_KERNELS = ("jacobian_to_affine_g1",)
 # the bus's canary pair runs K3's per-set entry
 SINGLES_KERNELS = tuple(k for k in BATCH_KERNELS if k != "lane_sum_g1") + POINT_PATH_KERNELS + (
     "pair_final_exp",)
+
+# the kzg slice's launches: a block's batch verify, one fixed-base MSM (a
+# commitment or a proof: the fold of 64 x 4,096 lanes in two launches, the
+# Horner ladder and its fold, the read's to-affine) and one variable-base MSM
+KZG_VERIFY_LAUNCHES = {"ladder_g1": 1, "miller": 1, "fold_final_exp": 1, "lane_sum_g1": 1,
+                       "to_affine_g1": 1}
+KZG_FIXED_LAUNCHES = {"ladder_g1": 1, "lane_sum_g1": 3, "to_affine_g1": 1}
+KZG_VARIABLE_LAUNCHES = {"ladder_g1": 1, "lane_sum_g1": 2, "to_affine_g1": 1}
 
 # a point of order 13 on the twist E'(Fp2), affine (x0, x1, y0, y1): [h2 r / 169]
 # of an SSWU point (tests/test_torch_subgroup.py)
@@ -183,7 +216,7 @@ def main() -> int:
     from lighthouse_tpu_torch.ops import cuda_build, curve, curve_kernels, field as fd
     from lighthouse_tpu_torch.ops import final_exp, fp_product, lanes, ladder, ladder_rows, miller
     from lighthouse_tpu_torch.ops import mma_probe, subgroup, subgroup_rows
-    from lighthouse_tpu_torch.ops import window_ladder
+    from lighthouse_tpu_torch.ops import device_io, window_ladder
     from lighthouse_tpu_torch.bls.hash_to_curve import hash_to_field_fp2, iso_map, map_to_curve_sswu
     from lighthouse_tpu_torch.common import device_attribution
     from lighthouse_tpu_torch.common.events_journal import Journal
@@ -193,6 +226,11 @@ def main() -> int:
     from lighthouse_tpu_torch.verification_bus import VerificationBus, wall_model
     from lighthouse_tpu_torch.crypto.ref_curve import G1 as RG1
     from lighthouse_tpu_torch.crypto.ref_curve import G2 as RG2
+    from lighthouse_tpu_torch.crypto.constants import R as R_ORDER
+    from lighthouse_tpu_torch import kzg as pkzg
+    from lighthouse_tpu_torch.bls import point_serde
+    from lighthouse_tpu_torch.kzg import api as kzg_api, gpu_backend as kzg_gpu
+    from lighthouse_tpu_torch.ops import kzg_verify, msm as kmsm
 
     os.makedirs(OUT, exist_ok=True)
     dev = torch.device("cuda")
@@ -315,11 +353,14 @@ def main() -> int:
 
     records = {}
 
-    def hold(name, kernel_fn, plain_fn, inputs_bytes, reps=3, products=None, bound=None):
+    def hold(name, kernel_fn, plain_fn, inputs_bytes, reps=3, products=None, bound=None,
+             rows=None):
         """Kernel vs plain on the same inputs: exact equality, times, bound.
         `products` replaces the plain version's Fp product count where the
         kernel's work depends on the data; `bound` = (ms, by) replaces the
-        Fp product bound for a kernel that is not field arithmetic."""
+        Fp product bound for a kernel that is not field arithmetic; `rows`,
+        the products of the rows the kernel runs where that is more than
+        the function needs, is kept beside the bound as bound_rows_ms."""
         out_k = kernel_fn()
         kernel_ms = cuda_build.time_ms(kernel_fn, reps)
         prod0 = fd.FP_PRODUCTS
@@ -348,12 +389,23 @@ def main() -> int:
         }
         if bound is not None:
             rec["bound_ms"], rec["bound_by"] = bound
+        if rows is not None:
+            rec["fp_products_rows"] = rows
+            rec["bound_rows_ms"] = rows * IMAD_PER_FP_PRODUCT / INT_OPS_PER_S * 1e3
         emit("kernel_vs_plain", kernel=name, held=err == 0, **rec)
         assert err == 0, f"{name}: kernel and plain version disagree"
         return rec
 
     def nb(*ts):
         return sum(t.numel() * t.element_size() for t in _flatten(ts))
+
+    def k1_needed(w, mags, live):
+        """The products K1's window form needs for the digits mags (W, L)
+        on the lanes where `live` holds (ladder_rows.window_steps_needed):
+        nothing for identity lanes or zero scalars."""
+        keep = torch.as_tensor(live, device=mags.device).reshape(-1).to(torch.bool)
+        assert keep.numel() == mags.shape[1], (keep.shape, mags.shape)
+        return ladder_rows.step_products(w, *ladder_rows.window_steps_needed(mags[:, keep].cpu().numpy()))
 
     ladder_inputs = {}
     for label, sets, seed in (("grouped", slot, 3), ("flat", flat, 4)):
@@ -378,15 +430,17 @@ def main() -> int:
                 lambda: curve_kernels.lane_sum_plain(pk, K), nb(pk))
         agg = curve_kernels.lane_sum(pk, K)
         ladder_inputs[label] = {1: agg, 2: sig, "bits": bits}
-        # the window body's products: those of the rows its lanes run (a G2
-        # row is an Fp2 product of 2.5 products' multiply-adds), not the
-        # plain version's
-        k1_products = {w: pt[0].shape[-1] * ladder_rows.lane_products(w, int(mags.shape[0]))
-                       for w, pt in ((1, agg), (2, sig))}
+        # the window body's products (a G2 row is an Fp2 product of 2.5
+        # products' multiply-adds), not the plain version's: what the live
+        # lanes need at their scalars' widths (the bound), and the rows every
+        # lane runs, padding included (bound_rows_ms)
+        k1_products = {w: k1_needed(w, mags, sm) for w in (1, 2)}
+        k1_rows = {w: pt[0].shape[-1] * ladder_rows.lane_products(w, int(mags.shape[0]))
+                   for w, pt in ((1, agg), (2, sig))}
         recs["ladder_g1"] = hold(
             "ladder_g1", lambda: ladder.ladder(agg, mags, negs),
             lambda: ladder.ladder_plain(agg, mags, negs), nb(agg, mags, negs),
-            products=k1_products[1])
+            products=k1_products[1], rows=k1_rows[1])
         pk_r = ladder.ladder(agg, mags, negs)
         if m.grouped:
             Sg = m.set_mask.shape[1]
@@ -402,7 +456,7 @@ def main() -> int:
         recs["ladder_g2"] = hold(
             "ladder_g2", lambda: ladder.ladder(sig, mags, negs),
             lambda: ladder.ladder_plain(sig, mags, negs), nb(sig, mags, negs),
-            products=k1_products[2])
+            products=k1_products[2], rows=k1_rows[2])
         sig_r = ladder.ladder(sig, mags, negs)
         recs["lane_sum_g2"] = hold(
             "lane_sum_g2", lambda: curve_kernels.lane_sum(sig_r, S),
@@ -517,7 +571,7 @@ def main() -> int:
     def sig_lanes(points):
         """Jacobian points -> the kernel's inputs through the Jacobian entry:
         affine (x, y) lanes and the mask (Z = 0 lanes masked)."""
-        jac = tuple(bv._lanes(gpu_backend._to_device(c, dev), dev)
+        jac = tuple(bv._lanes(device_io.to_device(c, dev), dev)
                     for c in gpu_backend._pack_jacobian(points, 2))
         x, y, inf = curve_kernels.jacobian_to_affine(jac)
         return x, y, ~inf
@@ -1146,6 +1200,257 @@ def main() -> int:
     print(smi, flush=True)
     emit("wall_model", **records["wall_model"])
 
+    # -------------------------------------------------- 7e. KZG (kzg)
+    # the kzg slice at mainnet width (types/spec.py: 4,096 field elements a
+    # blob, 6 blobs a block): the dev setup and its packed window table;
+    # six seeded blobs' commitments and proofs through backend="gpu" (blob
+    # 0's held byte-equal to "ref"); the variable-base MSM on the committed
+    # 4,096-point vector; the block's batch verify (True), a tampered blob
+    # and two swapped proofs (False), one blob (True), the ref backend on
+    # the six (True); launches and the plain Fp product count read around
+    # one verify and one MSM of each form (no plain version runs on the
+    # card's path); every kernel at the KZG shapes held exactly against its
+    # plain version; a 255-bit K1 edge batch; an injected error
+    GUARD.reset()
+    INJECTOR.reset()
+    KZG_FE, KZG_BLOBS = 4_096, 6
+    kz = {}
+    t0 = time.perf_counter()
+    setup = pkzg.dev_setup(KZG_FE)
+    t1 = time.perf_counter()
+    packed = kzg_gpu._host_table(setup, KZG_FE)
+    t2 = time.perf_counter()
+    kz["setup"] = {"powers": KZG_FE, "dev_setup_s": t1 - t0, "table_s": t2 - t1,
+                   "table_mb": packed.nbytes / 1e6}
+    rng = random.Random(4844)
+    blobs = [b"".join(rng.randrange(R_ORDER).to_bytes(32, "big") for _ in range(KZG_FE))
+             for _ in range(KZG_BLOBS)]
+    emit("kzg_setup", **kz["setup"])
+
+    # kzg_commit: one commitment's launches and plain products, then the
+    # six commitments and proofs, blob 0's against "ref"
+    prod0 = fd.FP_PRODUCTS
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    comm0 = pkzg.blob_to_kzg_commitment(blobs[0], setup=setup, backend="gpu", device="cuda")
+    first_commit_s = time.perf_counter() - t0
+    fixed_launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+    fixed_plain = fd.FP_PRODUCTS - prod0
+    assert fixed_launches == KZG_FIXED_LAUNCHES and not fixed_plain, (fixed_launches, fixed_plain)
+    t0 = time.perf_counter()
+    comms = [comm0] + [pkzg.blob_to_kzg_commitment(b, setup=setup, backend="gpu", device="cuda")
+                       for b in blobs[1:]]
+    t1 = time.perf_counter()
+    proofs = [pkzg.compute_blob_kzg_proof(b, c, setup=setup, backend="gpu", device="cuda")
+              for b, c in zip(blobs, comms)]
+    t2 = time.perf_counter()
+    msm_stats = dict(kzg_gpu.LAST_MSM_STATS)
+    t3 = time.perf_counter()
+    ref_comm = pkzg.blob_to_kzg_commitment(blobs[0], setup=setup, backend="ref")
+    ref_proof = pkzg.compute_blob_kzg_proof(blobs[0], comms[0], setup=setup, backend="ref")
+    t4 = time.perf_counter()
+    assert ref_comm == comms[0] and ref_proof == proofs[0], "kzg_commit: gpu and ref bytes differ"
+    # the fixed-base MSM's device time alone, on blob 0's scalars
+    kzg_table = kzg_gpu._device_table(setup, KZG_FE, packed, dev)
+    poly = kzg_api.blob_to_polynomial(blobs[0])
+    f_mags, f_negs = (torch.from_numpy(a).to(dev)
+                      for a in window_ladder.signed_digit_arrays(poly, nbits=kmsm.SCALAR_BITS))
+    fixed_ms = cuda_build.time_ms(lambda: kmsm.msm_fixed_base(kzg_table, f_mags, f_negs))
+    kz["commit"] = {"blobs": KZG_BLOBS, "first_commit_s": first_commit_s,
+                    "commit_s_each": (t1 - t0) / (KZG_BLOBS - 1),
+                    "proof_s_each": (t2 - t1) / KZG_BLOBS, "last_proof_split": msm_stats,
+                    "ref_commit_and_proof_s": t4 - t3, "ref_byte_equal": True,
+                    "fixed_msm_device_ms": fixed_ms, "launches": fixed_launches,
+                    "plain_fp_products": fixed_plain}
+    print(smi, flush=True)
+    emit("kzg_commit", **kz["commit"])
+
+    # the variable-base MSM on the committed 4,096-point vector
+    with open(os.path.join(HERE, "tests", "vectors", "kzg", "msm", "full_4096.json")) as f:
+        case = json.load(f)
+    v_pts = [None if p is None else (int(p["x"], 16), int(p["y"], 16)) for p in case["input"]["points"]]
+    v_sc = [int(s, 16) for s in case["input"]["scalars"]]
+    prod0 = fd.FP_PRODUCTS
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    v_out = kzg_gpu.g1_msm_gpu(v_pts, v_sc, device="cuda")
+    v_wall = time.perf_counter() - t0
+    var_launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+    var_plain = fd.FP_PRODUCTS - prod0
+    assert var_launches == KZG_VARIABLE_LAUNCHES and not var_plain, (var_launches, var_plain)
+    assert point_serde.g1_compress(v_out) == bytes.fromhex(case["output"][2:]), "kzg_msm: wrong point"
+    vx, vy, vmask = kzg_gpu._affine_words(v_pts)
+    v_mags, v_negs = window_ladder.signed_digit_arrays(v_sc, nbits=kmsm.SCALAR_BITS)
+    v_in = [torch.from_numpy(a).to(dev) for a in (vx, vy, vmask, v_mags, v_negs)]
+    var_ms = cuda_build.time_ms(lambda: kmsm.msm_variable(*v_in, device=dev))
+    kz["variable_msm"] = {"points": len(v_pts), "matches_vector": True, "wall_s": v_wall,
+                          "split": dict(kzg_gpu.LAST_MSM_STATS), "device_ms": var_ms,
+                          "launches": var_launches, "plain_fp_products": var_plain}
+    emit("kzg_msm", **kz["variable_msm"])
+
+    # kzg_block: the six through backend="gpu"
+    prod0 = fd.FP_PRODUCTS
+    cuda_build.reset_launches()
+    ok = pkzg.verify_blob_kzg_proof_batch(blobs, comms, proofs, backend="gpu", setup=setup,
+                                          device="cuda")
+    verify_launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+    verify_plain = fd.FP_PRODUCTS - prod0
+    assert ok is True, "kzg_block: the block's blobs were rejected"
+    assert verify_launches == KZG_VERIFY_LAUNCHES and not verify_plain, (verify_launches, verify_plain)
+    walls, splits = [], []
+    for r in range(REPS):
+        t0 = time.perf_counter()
+        assert pkzg.verify_blob_kzg_proof_batch(blobs, comms, proofs, backend="gpu", setup=setup,
+                                                seed=100 + r, device="cuda")
+        walls.append(time.perf_counter() - t0)
+        splits.append(dict(kzg_gpu.LAST_HOST_STATS))
+    split = {k: statistics.median(s[k] for s in splits)
+             for k in ("challenge_ms", "evaluate_ms", "decompress_ms", "pack_ms", "host_ms",
+                       "device_ms")}
+    tampered = list(blobs)
+    tampered[2] = tampered[2][:64] + bytes([tampered[2][64] ^ 1]) + tampered[2][65:]
+    bad_blob = pkzg.verify_blob_kzg_proof_batch(tampered, comms, proofs, backend="gpu",
+                                                setup=setup, device="cuda")
+    swapped = [proofs[1], proofs[0]] + proofs[2:]
+    bad_swap = pkzg.verify_blob_kzg_proof_batch(blobs, comms, swapped, backend="gpu", setup=setup,
+                                                device="cuda")
+    one = pkzg.verify_blob_kzg_proof_batch(blobs[:1], comms[:1], proofs[:1], backend="gpu",
+                                           setup=setup, device="cuda")
+    t0 = time.perf_counter()
+    ref_ok = pkzg.verify_blob_kzg_proof_batch(blobs, comms, proofs, backend="ref", setup=setup)
+    ref_s = time.perf_counter() - t0
+    assert bad_blob is False and bad_swap is False and one is True and ref_ok is True, \
+        (bad_blob, bad_swap, one, ref_ok)
+    # the host's decompression of one commitment, with and without its
+    # subgroup check, a mean over the six
+    t0 = time.perf_counter()
+    c_pts = [point_serde.g1_decompress(c) for c in comms]
+    t1 = time.perf_counter()
+    assert all(RG1.in_subgroup(c) for c in c_pts)
+    t2 = time.perf_counter()
+    kz["block"] = {"blobs": KZG_BLOBS, "verdict": ok, "tampered_blob": bad_blob,
+                   "swapped_proofs": bad_swap, "one_blob": one, "ref_agrees": ref_ok,
+                   "ref_s": ref_s, "p50_s": statistics.median(walls), "walls_s": walls,
+                   "host_split_p50": split,
+                   "decompress_one_ms": (t1 - t0) / KZG_BLOBS * 1e3,
+                   "subgroup_one_ms": (t2 - t1) / KZG_BLOBS * 1e3,
+                   "launches": verify_launches, "plain_fp_products": verify_plain}
+    print(smi, flush=True)
+    emit("kzg_block", **kz["block"])
+
+    # the kernels at the KZG shapes, step by step, each against its plain
+    # version: the block's lanes (4b = 32), the fixed-base MSM's 64 x 4,096
+    # selected lanes and its Horner lanes, the variable-base MSM's lanes
+    recs = records.setdefault("kzg", {})
+    _, zs, ys, cs, ws = kzg_api._batch_inputs(blobs, comms, proofs, setup)
+    rs = kzg_api._rlc_scalars(KZG_BLOBS, 5)
+    affs, scalars = kzg_gpu.verify_lanes(cs, ws, rs, zs, ys)
+    kx, ky, kmask = kzg_gpu._affine_words(affs)
+    k_mags, k_negs = (torch.from_numpy(a).to(dev).to(torch.int32).contiguous()
+                      for a in window_ladder.signed_digit_arrays(scalars, nbits=kmsm.SCALAR_BITS))
+    L = len(affs)
+    pts = bv._from_affine(bv._lanes(kx, dev), bv._lanes(ky, dev), bv._mask(kmask, dev))
+    emit("shapes", batch="kzg_block", lanes=L, windows=int(k_mags.shape[0]))
+    recs["ladder_g1"] = hold(
+        "ladder_g1", lambda: ladder.ladder(pts, k_mags, k_negs),
+        lambda: ladder.ladder_plain(pts, k_mags, k_negs), nb(pts, k_mags, k_negs),
+        products=k1_needed(1, k_mags, kmask), rows=L * ladder_rows.lane_products(1, int(k_mags.shape[0])))
+    lanes_r = ladder.ladder(pts, k_mags, k_negs)
+    recs["lane_sum_g1"] = hold(
+        "lane_sum_g1", lambda: curve_kernels.lane_sum(lanes_r, L // 2),
+        lambda: curve_kernels.lane_sum_plain(lanes_r, L // 2), nb(lanes_r))
+    sums = curve_kernels.lane_sum(lanes_r, L // 2)
+    recs["to_affine_g1"] = hold(
+        "to_affine_g1", lambda: curve_kernels.to_affine(sums),
+        lambda: curve_kernels.to_affine_plain(sums), nb(sums),
+        products=curve_kernels.affine_products(1, False, 2))
+    px, py, pinf = curve_kernels.to_affine(sums)
+    tau = [torch.from_numpy(fd.mont_words(c)).to(dev) for c in setup.tau_g2]
+    g2 = tuple(torch.stack([fd.matrix(gen, dev), t], dim=-1)
+               for gen, t in zip(kzg_verify.G2_GEN_AFFINE, tau))
+    recs["miller"] = hold(
+        "miller", lambda: miller.miller_loop((px, py), g2, ~pinf),
+        lambda: miller.miller_loop_plain((px, py), g2, ~pinf), nb(px, py, g2, pinf))
+    kf = miller.miller_loop((px, py), g2, ~pinf)
+    recs["fold_final_exp"] = hold(
+        "fold_final_exp", lambda: final_exp.fold_final_exp(kf),
+        lambda: final_exp.fold_final_exp_plain(kf), nb(kf))
+    assert bool(final_exp.fold_final_exp(kf)[1]), "kzg: stage-by-stage verdict is not 1"
+    # the fixed-base MSM: the selection (indexing, no kernel), the fold of
+    # 64 x 4,096 lanes to the 64 window sums, the Horner ladder on 64 lanes
+    # and its fold
+    sel = kmsm.select_fixed(kzg_table, f_mags, f_negs)
+    W = int(f_mags.shape[0])
+    recs["lane_sum_g1_msm"] = hold(
+        "lane_sum_g1", lambda: curve_kernels.lane_sum(sel, KZG_FE),
+        lambda: curve_kernels.lane_sum_plain(sel, KZG_FE), nb(sel))
+    wsum = curve_kernels.lane_sum(sel, KZG_FE)
+    h_mags, h_negs = kmsm.horner_digits(W, dev)
+    recs["ladder_g1_horner"] = hold(
+        "ladder_g1", lambda: ladder.ladder(wsum, h_mags, h_negs),
+        lambda: ladder.ladder_plain(wsum, h_mags, h_negs), nb(wsum, h_mags, h_negs),
+        products=ladder_rows.step_products(1, window_ladder.WINDOW_BITS * (W - 1), W - 1),
+        rows=W * ladder_rows.lane_products(1, W))
+    hacc = ladder.ladder(wsum, h_mags, h_negs)
+    recs["lane_sum_g1_horner"] = hold(
+        "lane_sum_g1", lambda: curve_kernels.lane_sum(hacc, W),
+        lambda: curve_kernels.lane_sum_plain(hacc, W), nb(hacc))
+    # the variable-base MSM's ladder on its 4,096 points
+    v_pt = bv._from_affine(bv._lanes(v_in[0], dev), bv._lanes(v_in[1], dev), bv._mask(v_in[2], dev))
+    v_m, v_n = (t.to(torch.int32).contiguous() for t in v_in[3:])
+    recs["ladder_g1_variable"] = hold(
+        "ladder_g1", lambda: ladder.ladder(v_pt, v_m, v_n),
+        lambda: ladder.ladder_plain(v_pt, v_m, v_n), nb(v_pt, v_m, v_n),
+        products=k1_needed(1, v_m, v_in[2]), rows=len(v_pts) * ladder_rows.lane_products(1, W))
+    # K1 at 255 bits on an edge batch: 0, 1, r - 1, 2^254, 2^255 - 1 (the
+    # top window's 7 plus a carry: digit 8), every digit -8 / +8, random,
+    # and identity lanes; against the plain version and ref_curve
+    e_pts = [RG1.mul_scalar(RG1.generator, 3 + i) for i in range(12)] + [None] * 4
+    e_sc = [0, 1, R_ORDER - 1, 2**254, 2**255 - 1, int("8" * 63, 16), int("9" * 63, 16),
+            rng.randrange(R_ORDER), rng.randrange(R_ORDER), 2**252 * 7, 12345, 2**64 - 1,
+            R_ORDER - 1, 5, 0, 2**255 - 1]
+    ex, ey, emask = kzg_gpu._affine_words([None if p is None else RG1.to_affine(p) for p in e_pts])
+    e_mags, e_negs = (torch.from_numpy(a).to(dev).to(torch.int32).contiguous()
+                      for a in window_ladder.signed_digit_arrays(e_sc, nbits=255))
+    e_pt = bv._from_affine(bv._lanes(ex, dev), bv._lanes(ey, dev), bv._mask(emask, dev))
+    e_out = ladder.ladder(e_pt, e_mags, e_negs)
+    e_plain = ladder.ladder_plain(e_pt, e_mags, e_negs)
+    e_err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in zip(e_out, e_plain))
+    ax, ay, ainf = (t.cpu() for t in curve_kernels.to_affine(e_out))
+    e_ref = True
+    for k, (p, s) in enumerate(zip(e_pts, e_sc)):
+        want = RG1.infinity if p is None else RG1.mul_scalar(p, s)
+        if RG1.is_infinity(want):
+            e_ref &= bool(ainf[k])
+        else:
+            got = (fd.words_from_mont(ax[0, :, k][None])[0], fd.words_from_mont(ay[0, :, k][None])[0])
+            e_ref &= got == RG1.to_affine(want)
+    emit("kzg_k1_edge", lanes=len(e_pts), max_abs_err=e_err, ref_curve_agrees=e_ref,
+         top_digit_8=bool(e_mags[63, 4] == 8))
+    assert e_err == 0 and e_ref, "kzg: K1's 255-bit edge batch disagrees"
+
+    # the guard: an injected error on the kzg plane raises a DeviceFaultError
+    # before any launch; the next call is right; and the kzg self-test
+    INJECTOR.arm("error", "kzg", rate=1.0, seed=1)
+    cuda_build.reset_launches()
+    try:
+        pkzg.verify_blob_kzg_proof_batch(blobs, comms, proofs, backend="gpu", setup=setup,
+                                         device="cuda")
+        raise AssertionError("kzg: an injected error went unseen")
+    except DeviceFaultError as e:
+        kz["guard"] = {"raised": type(e).__name__, "launches": sum(cuda_build.LAUNCHES.values())}
+    INJECTOR.reset()
+    kz["guard"]["next_verdict"] = pkzg.verify_blob_kzg_proof_batch(
+        blobs, comms, proofs, backend="gpu", setup=setup, device="cuda")
+    kz["guard"]["selftest"] = GUARD.self_test(("kzg",))
+    kz["guard"]["stats"] = GUARD.stats()["faults"]
+    assert kz["guard"]["launches"] == 0 and kz["guard"]["next_verdict"] is True \
+        and kz["guard"]["selftest"] == {"kzg": True}, kz["guard"]
+    emit("kzg_guard", **kz["guard"])
+    records["kzg_phase"] = kz
+    kzg_launches = {"verify": verify_launches, "fixed": fixed_launches, "variable": var_launches}
+    GUARD.reset()
+
     # ------------------------------------------- 8. tensor-core probe
     probe = {form: mma_probe.probe(form, dev) for form in mma_probe.FORMS}
     probe_launches = {}
@@ -1197,6 +1502,15 @@ def main() -> int:
                         "held and plain_ms on the slice plus two 8-lane warps and a 34-lane edge "
                         "batch; launches from the ingest run"),
     }
+    # the kzg block's shapes (32 lanes at 64 windows, a fold of 32 -> 2, two
+    # pairs) and the MSMs' (the fold of 64 x 4,096 lanes, the Horner ladder
+    # on 64 lanes and its fold, the variable-base ladder on 4,096 lanes)
+    kzg_extra = {"ladder_g1": ("ladder_g1_horner", "ladder_g1_variable"),
+                 "lane_sum_g1": ("lane_sum_g1_msm", "lane_sum_g1_horner")}
+
+    def pick(r):
+        return {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+
     kernels = []
     for name, (source, replaces, note) in meta.items():
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
@@ -1226,6 +1540,13 @@ def main() -> int:
         })
         if name == "miller":
             entry["per_set"] = records["per_set"]["miller"] | {"launches": per_set_launches[name]}
+        if name in records["kzg"]:  # the same kernel at the kzg slice's shapes
+            entry["kzg"] = pick(records["kzg"][name]) | {
+                "launches": kzg_launches["verify"].get(name, 0),
+                "launches_fixed_msm": kzg_launches["fixed"].get(name, 0),
+                "launches_variable_msm": kzg_launches["variable"].get(name, 0)}
+            for extra in kzg_extra.get(name, ()):
+                entry["kzg"][extra] = pick(records["kzg"][extra])
         kernels.append(entry)
     with open(os.path.join(OUT, "chip_smoke_records.json"), "w") as f:
         json.dump({"records": records, "kernels": kernels, "smi": smi}, f, indent=1)

@@ -39,7 +39,7 @@ kernels' constants are uploaded once and cached.
 `check_signature_subgroups` fills the subgroup memo of a list of
 signatures with two launches: the Jacobian entry of the to-affine kernel,
 then the subgroup kernel (`ops/subgroup.py`), the device form of
-`bench_oppool.py`'s phase 2.
+`bench_oppool.py`'s phase 2; it crosses the guard too.
 
 Each batch is attributed to its consumer (`common/device_attribution.py`:
 lanes, padding, device seconds) and traced (`common/tracing.py`: the
@@ -58,7 +58,8 @@ the caller as a `DeviceFaultError`; there is no failover.
 The attempts may run on several threads at once (the bus flushes on its
 submitters' threads, the watchdog runs each attempt on a thread of its
 own). The device work of an attempt -- uploads, launches, the verdict's
-read, the call counts -- runs under one lock per device (`_device_lock`),
+read, the call counts -- runs under one lock per device
+(`ops/device_io.device_lock`),
 so concurrent calls launch one after another, each on the current stream
 of the thread that holds the lock.
 
@@ -78,8 +79,9 @@ from lighthouse_tpu_torch.bls.hash_to_curve import hash_to_g2
 from lighthouse_tpu_torch.common import device_attribution as attribution
 from lighthouse_tpu_torch.common.tracing import span
 from lighthouse_tpu_torch.crypto.ref_curve import G2 as G2_GROUP
-from lighthouse_tpu_torch.device_plane.executor import GUARD
+from lighthouse_tpu_torch.device_plane.executor import GUARD, pow2_bucket
 from lighthouse_tpu_torch.ops import batch_verify, curve_kernels, field as fd, subgroup
+from lighthouse_tpu_torch.ops.device_io import device_lock, resolve_device, to_device
 
 # host/device split of the last dispatched batch
 LAST_HOST_STATS: dict = {}
@@ -92,14 +94,6 @@ LAST_STREAM_STATS: dict = {}
 CALL_COUNTS = {"batch": 0, "individual": 0}
 
 _stats_lock = threading.Lock()
-_device_locks: dict = {}
-
-
-def _device_lock(dev: torch.device) -> threading.RLock:
-    """The lock that serialises the device work of concurrent calls on
-    `dev`."""
-    with _stats_lock:
-        return _device_locks.setdefault(str(dev), threading.RLock())
 
 
 def _bucket(n: int, minimum: int) -> int:
@@ -327,34 +321,14 @@ def _marshal_flat(sets, pow2: bool = True) -> _Marshalled:
 # ---------------------------------------------------------------- dispatch
 
 
-def resolve_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' requested but no CUDA device is available")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
-
-
-def _to_device(a, device: torch.device) -> torch.Tensor:
-    """A host array on `device`: on the CPU as it is; on the card through a
-    pinned staging copy, non-blocking, so the host goes on while the card
-    still runs the queued kernels (a copy from pageable memory waits for
-    them)."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if device.type != "cuda":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
-
-
 def _pubkeys(m, device):
     """The batch's key words on `device`: affine (x, y) gathered from its
     table, or the Jacobian (X, Y, Z) plain words of the point path."""
     if m.table is None:
-        return tuple(_to_device(c, device) for c in m.pubkeys)
+        return tuple(to_device(c, device) for c in m.pubkeys)
     if m.table.device != device:
         raise ValueError(f"pubkey table on {m.table.device}, batch on {device}")
-    return m.table.gather(_to_device(m.indices, device))
+    return m.table.gather(to_device(m.indices, device))
 
 
 def _launch(m, rand_bits, device, ladder="window") -> torch.Tensor:
@@ -362,19 +336,19 @@ def _launch(m, rand_bits, device, ladder="window") -> torch.Tensor:
     returns the verdict as a 0-d bool tensor on the device, unread: nothing
     here waits for the device."""
     CALL_COUNTS["batch"] += 1
-    msgs = tuple(_to_device(c, device) for c in m.msgs)
-    sigs = tuple(_to_device(c, device) for c in m.sigs)
+    msgs = tuple(to_device(c, device) for c in m.msgs)
+    sigs = tuple(to_device(c, device) for c in m.sigs)
     pubkeys = _pubkeys(m, device)
-    key_mask = _to_device(m.key_mask, device)
-    set_mask = _to_device(m.set_mask, device)
+    key_mask = to_device(m.key_mask, device)
+    set_mask = to_device(m.set_mask, device)
     if m.grouped:
-        bits = _to_device(rand_bits.reshape(m.set_mask.shape + (batch_verify.RAND_BITS,)), device)
+        bits = to_device(rand_bits.reshape(m.set_mask.shape + (batch_verify.RAND_BITS,)), device)
         return batch_verify.verify_signature_sets_grouped(
             msgs, sigs, pubkeys, key_mask, bits, set_mask,
-            _to_device(m.group_mask, device), device=device, ladder=ladder,
+            to_device(m.group_mask, device), device=device, ladder=ladder,
         )
     return batch_verify.verify_signature_sets(
-        msgs, sigs, pubkeys, key_mask, _to_device(rand_bits, device), set_mask,
+        msgs, sigs, pubkeys, key_mask, to_device(rand_bits, device), set_mask,
         device=device, ladder=ladder,
     )
 
@@ -458,7 +432,7 @@ def verify_signature_sets_gpu(
     def attempt(plan):
         plan.raise_if_faulted()
         with span("verify/device", s_bucket=m.s_bucket, grouped=bool(m.grouped),
-                  indexed=m.table is not None), _device_lock(dev):
+                  indexed=m.table is not None), device_lock(dev):
             return bool(plan.verdict(_force(_launch(m, rand_bits, dev, ladder))))
 
     result = GUARD.dispatch("bls", _shape_key(m), attempt)
@@ -487,12 +461,12 @@ def verify_signature_sets_gpu_individual(sets, device="cuda", consumer=None) -> 
 
     def attempt(plan):
         plan.raise_if_faulted()
-        with span("verify/device", s_bucket=m.s_bucket, individual=True), _device_lock(dev):
+        with span("verify/device", s_bucket=m.s_bucket, individual=True), device_lock(dev):
             CALL_COUNTS["individual"] += 1
             ok = batch_verify.verify_signature_sets_individual(
-                tuple(_to_device(c, dev) for c in m.msgs),
-                tuple(_to_device(c, dev) for c in m.sigs),
-                _pubkeys(m, dev), _to_device(m.key_mask, dev), _to_device(m.set_mask, dev),
+                tuple(to_device(c, dev) for c in m.msgs),
+                tuple(to_device(c, dev) for c in m.sigs),
+                _pubkeys(m, dev), to_device(m.key_mask, dev), to_device(m.set_mask, dev),
                 device=dev,
             ).tolist()
         return list(plan.verdict([bool(v) for v in ok]))
@@ -536,7 +510,7 @@ def verify_signature_set_batches_gpu(
         stream["host_s"] = 0.0
         stream["noted"] = []
         pending = None  # (batch index, the read of its verdict)
-        with _device_lock(dev):
+        with device_lock(dev):
             for bi in live:
                 sets = batches[bi]
                 t0 = time.perf_counter()
@@ -569,21 +543,39 @@ def verify_signature_set_batches_gpu(
     return results
 
 
+def _subgroup_verdicts(words, dev) -> list:
+    """The device half of `check_signature_subgroups`: the packed Jacobian
+    words (`_pack_jacobian`) uploaded, the two launches and the verdicts'
+    read, under the device lock."""
+    with span("verify/subgroup_check", n_sets=words[0].shape[0], device=dev.type), device_lock(dev):
+        jac = tuple(batch_verify._lanes(to_device(c, dev), dev) for c in words)
+        x, y, inf = curve_kernels.jacobian_to_affine(jac)
+        return [bool(v) for v in subgroup.g2_in_subgroup(x, y, ~inf).tolist()]
+
+
 def check_signature_subgroups(sigs, device="cuda") -> list:
     """[r] P == O for each signature on `device`, in two launches for the
     whole list -- the Jacobian entry of the to-affine kernel, then the
     subgroup kernel -- and each signature's `_subgroup_ok` memo set to its
     own verdict. The point at infinity becomes a masked lane and passes, as
-    `ref_curve.G2.in_subgroup` has it. Returns the verdicts."""
+    `ref_curve.G2.in_subgroup` has it. Returns the verdicts.
+
+    The launches cross the guard like every device verify
+    (`GUARD.dispatch("bls", "subgroup<n>", attempt)`, n the list's
+    power-of-two bucket), the verdicts through `plan.verdict`; the memos are
+    set only from the verdicts of a dispatch that returned, so a fault
+    leaves every memo as it was."""
     dev = resolve_device(device)
     sigs = list(sigs)
     if not sigs:
         return []
-    with span("verify/subgroup_check", n_sets=len(sigs), device=dev.type), _device_lock(dev):
-        words = _pack_jacobian([s.point for s in sigs], 2)
-        jac = tuple(batch_verify._lanes(_to_device(c, dev), dev) for c in words)
-        x, y, inf = curve_kernels.jacobian_to_affine(jac)
-        ok = subgroup.g2_in_subgroup(x, y, ~inf).tolist()
+    words = _pack_jacobian([s.point for s in sigs], 2)
+
+    def attempt(plan):
+        plan.raise_if_faulted()
+        return list(plan.verdict(_subgroup_verdicts(words, dev)))
+
+    ok = GUARD.dispatch("bls", f"subgroup{pow2_bucket(len(sigs))}", attempt)
     for s, v in zip(sigs, ok):
-        s._subgroup_ok = bool(v)
+        s._subgroup_ok = v
     return ok

@@ -14,15 +14,18 @@
 //             doublings and one complete addition of table[d] from
 //             {O, P, 2P, 3P} (tcurve.window2_table / window2_step).
 //
-// What bounds them on the H100: integer multiply-adds. Per 64-bit scalar a
-// G1 lane runs 816 Fp products in the window form (17 x (4 doublings + 1
-// addition) plus the table's 4 doublings and 3 additions), 916 in w2 (32 x
-// (2 + 1) plus 1 + 1) and 1,272 in the chain (63 doublings, and an addition
-// on every bit, since a warp runs in lockstep; 888 if it added on set bits
-// only); a G2 lane 2.5 times as many products' multiply-adds (an Fp2
-// product by Karatsuba with the lazy reduction below). Each product is 288
-// 32x32->64 multiply-adds; the bytes (one read of the point and the digits
-// or bits, one write of the result) are ~1% of that.
+// What bounds them on the H100: integer multiply-adds. A lane's products
+// grow with the scalar's width (ops/ladder_rows.py `lane_products`). Per
+// 64-bit RLC scalar a G1 lane runs 816 Fp products in the window form (17
+// windows x (4 doublings + 1 addition) plus the table's 4 doublings and 3
+// additions), 916 in w2 (32 x (2 + 1) plus 1 + 1) and 1,272 in the chain
+// (63 doublings, and an addition on every bit, since a warp runs in
+// lockstep; 888 if it added on set bits only). Per 255-bit KZG scalar (the
+// window form alone, 64 windows) a G1 lane runs 2,884. A G2 lane runs 2.5
+// times as many products' multiply-adds (an Fp2 product by Karatsuba with
+// the lazy reduction below). Each product is 288 32x32->64 multiply-adds;
+// the bytes (one read of the point and the digits or bits, one write of
+// the result) are ~1% of that.
 //
 // Design, one body for the three forms: two threads a lane on G1 and G2
 // alike, the lane's values in a file of Fp slots in shared memory, its

@@ -1,13 +1,17 @@
 """Known-answer sentinel material for canary-verified device batches.
 
-The port of `lighthouse_tpu/device_plane/canary.py`, on the `bls` plane
-(the `kzg` and `merkle_proof` planes come with their slices of the port).
+The port of `lighthouse_tpu/device_plane/canary.py`, on the `bls` and
+`kzg` planes (the `merkle_proof` plane comes with its slice of the port).
 The only way to catch a card that COMPLETES but LIES is to keep asking it
 questions whose answers are known: one sentinel that must verify and one
 that must not. The port keeps its own copy of the reference's committed
-bls pair (`tests/vectors/sentinel/bls/{valid,invalid}.json`, interop
-keypair 0 over a fixed message, the invalid one with a tampered message)
-in `sentinel_bls.json` beside this module. Two uses:
+pairs beside this module: the bls pair
+(`tests/vectors/sentinel/bls/{valid,invalid}.json`, interop keypair 0 over
+a fixed message, the invalid one with a tampered message) in
+`sentinel_bls.json`, and the kzg pair
+(`tests/vectors/sentinel/kzg/{valid,invalid}.json`, a 4-element blob with
+its commitment and proof, the invalid one with a tampered blob) in
+`sentinel_kzg.json`. Two uses:
 
   * the verification bus splices the VALID sentinel into every canaried
     shared batch (an attribution-free extra set) and checks the
@@ -17,8 +21,8 @@ in `sentinel_bls.json` beside this module. Two uses:
     (True, False): a flipped or stuck verdict plane fails that check,
     raises `CanaryViolation` and quarantines the plane;
   * the startup self-test (`GUARD.self_test`) runs `self_test_plane`
-    against the host oracle, so a node never goes live with corrupt
-    sentinel material or a broken oracle path.
+    against the host oracle on each plane, so a node never goes live
+    with corrupt sentinel material or a broken oracle path.
 """
 
 import json
@@ -30,9 +34,11 @@ from lighthouse_tpu_torch.device_plane.executor import (
     CanaryViolation,
 )
 
-PLANES = ("bls",)
+PLANES = ("bls", "kzg")
 
-SENTINEL_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "sentinel_bls.json")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SENTINEL_FILE = os.path.join(_HERE, "sentinel_bls.json")
+KZG_SENTINEL_FILE = os.path.join(_HERE, "sentinel_kzg.json")
 
 _lock = threading.Lock()
 _bls_sets: tuple | None = None
@@ -42,6 +48,13 @@ def bls_vectors() -> dict:
     """{"valid": case, "invalid": case}, each {"pubkeys", "message",
     "signature"} as hex, as the reference commits them."""
     with open(SENTINEL_FILE) as f:
+        return json.load(f)
+
+
+def kzg_vectors() -> dict:
+    """{"valid": case, "invalid": case}, each {"blob", "commitment",
+    "proof"} as hex, as the reference commits them."""
+    with open(KZG_SENTINEL_FILE) as f:
         return json.load(f)
 
 
@@ -112,4 +125,17 @@ def self_test_plane(plane: str) -> bool:
 
         valid, invalid = bls_sentinels()
         return _verify_one_ref(valid) and not _verify_one_ref(invalid)
+    if plane == "kzg":
+        from lighthouse_tpu_torch.kzg.api import verify_blob_kzg_proof
+
+        ok = True
+        for name, want in (("valid", True), ("invalid", False)):
+            case = kzg_vectors()[name]
+            got = verify_blob_kzg_proof(
+                bytes.fromhex(case["blob"]),
+                bytes.fromhex(case["commitment"]),
+                bytes.fromhex(case["proof"]),
+            )
+            ok = ok and (got is want)
+        return ok
     raise ValueError(f"no self-test for plane {plane!r} in the port (planes: {PLANES})")

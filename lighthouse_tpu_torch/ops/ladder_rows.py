@@ -200,10 +200,33 @@ def lane_products(w: int, n: int, form: str = "window", set_bits=None) -> float:
     products' worth of multiply-adds (288 each): window 816 a 17-window
     lane, w2 916 a 32-digit lane, chain 1,272 a 64-bit lane in lockstep
     (~888 on set bits only)."""
+    return step_products(w, *lane_steps(form, n, set_bits))
+
+
+def step_products(w: int, n_dbl, n_add) -> float:
+    """n_dbl doublings and n_add additions of the kernel's MUL rows, in
+    12-word products' worth of multiply-adds."""
     n_rows = {ph: len(rows) for ph, rows in MUL_PHASES.items()}
-    n_dbl, n_add = lane_steps(form, n, set_bits)
     rows = n_dbl * (n_rows["D1"] + n_rows["D3"]) + n_add * (n_rows["A1"] + n_rows["A3"])
     return rows * ROW_MADDS[w] / ROW_MADDS[1]
+
+
+def window_steps_needed(mags) -> tuple:
+    """(doublings, additions) that the window form needs for the digit
+    magnitudes mags (W, L), summed over the lanes: a lane builds its table
+    up to its largest magnitude m (m // 2 doublings, (m - 1) // 2
+    additions), takes its top non-zero digit's entry, then C doublings a
+    window below it and one addition a non-zero digit; a zero scalar needs
+    nothing. The kernel itself runs every lane through the whole table and
+    every window (`lane_steps`)."""
+    m = np.asarray(mags)
+    nz = m != 0
+    live = nz.any(axis=0)
+    top = m.shape[0] - 1 - np.argmax(nz[::-1], axis=0)
+    big = m.max(axis=0, initial=0)
+    dbl = big // 2 + DOUBLINGS["window"] * top
+    add = (big - 1) // 2 + nz.sum(axis=0) - 1
+    return int(dbl[live].sum()), int(add[live].sum())
 
 
 def split(rows):

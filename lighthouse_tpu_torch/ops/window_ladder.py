@@ -4,10 +4,10 @@ The port of `lighthouse_tpu/ops/window_ladder.py`'s transposed plane: a
 scalar < 2^nbits becomes W signed base-2^c digits d_w in
 [-(2^(c-1) - 1), 2^(c-1)] (window-major magnitudes and sign flags), and the
 ladder runs, MSB first, c doublings and one complete addition of
-sign * table[|d|] per window. c = 4 throughout the verify path: a 64-bit
-RLC scalar has W = 17 windows. The per-bit chain (`tcurve.mul_scalar_bits`)
-and the 2-bit unsigned window (`tcurve.mul_scalar_bits_w2`) are K1's other
-two forms.
+sign * table[|d|] per window. c = 4 throughout: a 64-bit RLC scalar has
+W = 17 windows, a 255-bit KZG scalar (< r) W = 64. The per-bit chain
+(`tcurve.mul_scalar_bits`) and the 2-bit unsigned window
+(`tcurve.mul_scalar_bits_w2`) are K1's other two forms.
 """
 
 import numpy as np
@@ -48,10 +48,34 @@ def signed_digits(s: int, c: int = WINDOW_BITS, nbits: int | None = None) -> lis
     return out
 
 
-def signed_digit_arrays(scalars, c: int = WINDOW_BITS, nbits: int = 64):
-    """Host: scalars -> ((W, N) int32 magnitudes, (W, N) bool signs)."""
-    d = np.array([signed_digits(int(s), c, nbits) for s in scalars], np.int32).T
-    return np.abs(d), d < 0
+def signed_digit_arrays(scalars, nbits: int = 64):
+    """Host: scalars in [0, 2^nbits) -> ((W, N) int32 magnitudes, (W, N)
+    bool signs), window-major: `signed_digits` of every scalar at c = 4, as
+    one carry pass over the windows in numpy on the scalars' little-endian
+    bytes, two windows a byte (a KZG MSM recodes 4,096 scalars of 255
+    bits)."""
+    c = WINDOW_BITS
+    ints = [int(s) for s in scalars]
+    if any(s < 0 or s >> nbits for s in ints):
+        raise ValueError(f"signed_digit_arrays: a scalar outside [0, 2^{nbits})")
+    W = num_windows(nbits, c)
+    nbytes = -(-W // 2)
+    raw = np.frombuffer(b"".join(s.to_bytes(nbytes, "little") for s in ints), np.uint8)
+    raw = raw.reshape(-1, nbytes)
+    u = np.empty((2 * nbytes, raw.shape[0]), np.int8)
+    u[0::2] = (raw & 15).T
+    u[1::2] = (raw >> 4).T
+    half, full = 1 << (c - 1), 1 << c
+    mags = np.empty((W, raw.shape[0]), np.int32)
+    negs = np.empty((W, raw.shape[0]), bool)
+    carry = np.zeros(raw.shape[0], np.int8)
+    for w in range(W):
+        t = u[w] + carry
+        over = t > half
+        mags[w] = np.where(over, full - t, t)
+        negs[w] = over & (mags[w] > 0)  # a borrowed-to-zero digit is sign-free
+        carry = over.view(np.int8)
+    return mags, negs
 
 
 def scalars_to_bits(scalars, nbits: int) -> np.ndarray:

@@ -130,14 +130,40 @@ non-zero without its result line:
     identity lanes) against its plain version and ref_curve; an injected
     error on the kzg plane raising before any launch, the next verify
     right, and the kzg self-test;
+ 7f. merkle: the Merkle-proof plane at the light-client finality depth
+    (bench_lcserve.py's lcproof queries, depth 6) at 1,024 and 16,384
+    queries: the SHA-256 fold kernel (csrc/sha256_fold.cu) word for word
+    against its plain version, its device time beside its bound (bytes, and
+    the fewest 32-bit instructions of its formulas; the formulas' own count
+    beside) and hashlib's host time on the same queries; roots through
+    batch_merkle_roots byte-equal to fold_branches_host, one launch; an edge
+    batch in one call (depths 1, 3, 17 and 40; leaves and siblings of all
+    0x00 and all 0xFF; all-left and all-right paths; 1, 7 and 1,025 lanes;
+    one corrupted sibling whose verdict alone is False), each depth's
+    kernel against its plain version; the committed state_proof vectors
+    (valid True, corrupt False); the self-test over the three planes;
+ 7g. slot_program: one SlotProgram(...).run(backend="gpu") carrying the
+    slot's 64 x 480 sets, phase 7e's six-blob settle and 1,024 depth-6
+    Merkle queries: the verdicts (program True, settle delivered True,
+    every query True), exactly one counted guarded dispatch, launches equal
+    to the sum over the serial calls (the canary pair, the settle, the
+    Merkle check, the fold with the sentinel riding it), the wall p50 of 3
+    beside the serial calls' walls; a tampered blob (settle False, program
+    True), a forged signature in committee 31 (program False, settle True),
+    a corrupted sibling (that query alone False, program False); through
+    the bus, 64 committee submissions from 8 threads, one staging the
+    settle (all True, the settle delivered, its trigger bulk) and a
+    settle-only submit_program; an injected stall reaching the program's
+    submitter as DeviceFaultError with the work undelivered; a flip on the
+    canaried program raising CanaryViolation;
  8. the tensor-core probe (lighthouse_tpu_torch.ops.mma_probe), int8 and
     bf16, exact against the probe's numpy check and the plain version,
     kernel and library call timed the same way (and each once more in one
     synchronised call, cuda_build.call_ms, which shows the host's share of
     a few-microsecond call); its launches are those of one `contract` call;
  9. the kernels line (the kernels of the kzg path carry a "kzg" record at
-    its shapes, with its launches), then {"ok": true, "device": {...}} as
-    the last line.
+    its shapes, with its launches; every kernel its launches in phase 7g's
+    program run), then {"ok": true, "device": {...}} as the last line.
 
 The kernel records also go to chiprun_out/chip_smoke_records.json.
 
@@ -180,6 +206,10 @@ KZG_VERIFY_LAUNCHES = {"ladder_g1": 1, "miller": 1, "fold_final_exp": 1, "lane_s
                        "to_affine_g1": 1}
 KZG_FIXED_LAUNCHES = {"ladder_g1": 1, "lane_sum_g1": 3, "to_affine_g1": 1}
 KZG_VARIABLE_LAUNCHES = {"ladder_g1": 1, "lane_sum_g1": 2, "to_affine_g1": 1}
+# the slot program's kernels: the slot's fold, the settle's, the canary
+# pair's per-set entry and the Merkle fold
+PROGRAM_KERNELS = BATCH_KERNELS + ("pair_final_exp", "sha256_fold")
+MERKLE_DEPTH = 6  # the light-client finality branch
 
 # a point of order 13 on the twist E'(Fp2), affine (x0, x1, y0, y1): [h2 r / 169]
 # of an SSWU point (tests/test_torch_subgroup.py)
@@ -199,6 +229,21 @@ REPS = 5
 
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+class SettleWork:
+    """A block's pending KZG settle as a slot program takes it: a payload,
+    and every delivered verdict recorded."""
+
+    def __init__(self, blobs, commitments, proofs, backend="gpu"):
+        self._payload = (blobs, commitments, proofs, backend)
+        self.verdicts = []
+
+    def payload(self):
+        return self._payload
+
+    def deliver(self, verdict):
+        self.verdicts.append(verdict)
 
 
 def main() -> int:
@@ -231,6 +276,8 @@ def main() -> int:
     from lighthouse_tpu_torch.bls import point_serde
     from lighthouse_tpu_torch.kzg import api as kzg_api, gpu_backend as kzg_gpu
     from lighthouse_tpu_torch.ops import kzg_verify, msm as kmsm
+    from lighthouse_tpu_torch.ops import merkle_proof
+    from lighthouse_tpu_torch.ops.slot_program import SlotProgram
 
     os.makedirs(OUT, exist_ok=True)
     dev = torch.device("cuda")
@@ -1451,6 +1498,270 @@ def main() -> int:
     kzg_launches = {"verify": verify_launches, "fixed": fixed_launches, "variable": var_launches}
     GUARD.reset()
 
+    # ------------------------------------------ 7f. Merkle proofs (merkle)
+    # the light-client finality branch (depth 6; bench_lcserve.py's lcproof
+    # queries) at 1,024 and 16,384 queries: the SHA-256 fold against its
+    # plain version, exact words, its device time, bound and hashlib's time;
+    # then batch_merkle_roots (one launch) byte-equal to hashlib, its wall,
+    # packing and guarded dispatch on the first call and two warm ones
+    GUARD.reset()
+    INJECTOR.reset()
+    mk = {}
+    merkle_q = {n: T.proof_queries(n, MERKLE_DEPTH) for n in (1_024, 16_384)}
+    merkle_roots = {}
+    recs = records.setdefault("merkle", {})
+
+    def merkle_bound(lanes, depth):
+        t_bytes = merkle_proof.fold_bytes(lanes, depth) / HBM_BYTES_PER_S * 1e3
+        t_ops = merkle_proof.fold_ops(lanes, depth) / INT_OPS_PER_S * 1e3
+        return (max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"), \
+            merkle_proof.fold_ops(lanes, depth, merkle_proof.level_ops) / INT_OPS_PER_S * 1e3
+
+    for n, q in merkle_q.items():
+        ops = [torch.from_numpy(a).to(dev) for a in merkle_proof.pack_queries(q, MERKLE_DEPTH)]
+        bound, formula_ms = merkle_bound(n, MERKLE_DEPTH)
+        rec = hold("sha256_fold", lambda: merkle_proof.fold_branches(*ops),
+                   lambda: merkle_proof.fold_branches_plain(*ops), nb(*ops), bound=bound)
+        t0 = time.perf_counter()
+        host = merkle_proof.fold_branches_host(q)
+        hashlib_ms = (time.perf_counter() - t0) * 1e3
+        cuda_build.reset_launches()
+        roots = merkle_proof.batch_merkle_roots(q, consumer="light_client", device="cuda")
+        launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+        assert roots == host and launches == {"sha256_fold": 1}, ("merkle", n, launches)
+        splits = [dict(merkle_proof.LAST_STATS)]
+        for _ in range(2):  # warm calls
+            assert merkle_proof.batch_merkle_roots(q, consumer="light_client", device="cuda") == host
+            splits.append(dict(merkle_proof.LAST_STATS))
+        merkle_roots[n] = host
+        rec.update(lanes=n, depth=MERKLE_DEPTH, hashlib_ms=hashlib_ms,
+                   batch_wall_ms=[x["wall_ms"] for x in splits],
+                   batch_pack_ms=[x["pack_ms"] for x in splits],
+                   batch_dispatch_ms=[x["dispatch_ms"] for x in splits],
+                   launches=launches["sha256_fold"], bound_formula_ms=formula_ms,
+                   instructions_a_level=merkle_proof.level_instructions(),
+                   formula_ops_a_level=merkle_proof.level_ops(), library_ms=None)
+        recs[n] = rec
+        print(smi, flush=True)
+        emit("merkle_fold", **rec)
+
+    # the edge batch in one call: depths 1, 3, 17 and 40 with 7, 1, 1,025
+    # and 7 lanes; by lane mod 7: zeros all-left, 0xFF all-right, zeros
+    # all-right, 0xFF all-left, random bytes on a random path, all-left,
+    # all-right; one corrupted sibling in the depth-17 group
+    erng = random.Random(12)
+    edge = []
+    for depth, count in ((1, 7), (3, 1), (17, 1_025), (40, 7)):
+        for i in range(count):
+            kind = i % 7
+            fill = {0: b"\x00" * 32, 1: b"\xff" * 32, 2: b"\x00" * 32, 3: b"\xff" * 32}.get(kind)
+            leaf = fill or erng.randbytes(32)
+            branch = [fill or erng.randbytes(32) for _ in range(depth)]
+            path = {0: 0, 1: (1 << depth) - 1, 2: (1 << depth) - 1, 3: 0, 5: 0,
+                    6: (1 << depth) - 1}.get(kind, erng.getrandbits(depth))
+            edge.append((leaf, branch, (1 << depth) | path))
+    edge_want = merkle_proof.fold_branches_host(edge)
+    bad = 7 + 1 + 500
+    leaf, branch, g = edge[bad]
+    branch = list(branch)
+    branch[9] = bytes([branch[9][0] ^ 1]) + branch[9][1:]
+    corrupted = edge[:bad] + [(leaf, branch, g)] + edge[bad + 1:]
+    cuda_build.reset_launches()
+    verdicts = merkle_proof.batch_verify_branches(corrupted, edge_want, consumer="bench", device="cuda")
+    edge_launches = cuda_build.LAUNCHES["sha256_fold"]
+    edge_roots = merkle_proof.batch_merkle_roots(corrupted, consumer="bench", device="cuda")
+    edge_err = 0
+    for depth in (1, 3, 17, 40):
+        group = [e for e in corrupted if len(e[1]) == depth]
+        ops = [torch.from_numpy(a).to(dev) for a in merkle_proof.pack_queries(group, depth)]
+        k, p = merkle_proof.fold_branches(*ops), merkle_proof.fold_branches_plain(*ops)
+        edge_err = max(edge_err, int((k.to(torch.int64) - p.to(torch.int64)).abs().max()))
+    mk["edge"] = {"queries": len(edge), "depths": [1, 3, 17, 40], "lanes": [7, 1, 1_025, 7],
+                  "launches": edge_launches, "false_at": [i for i, v in enumerate(verdicts) if not v],
+                  "corrupted_at": bad, "max_abs_err": edge_err,
+                  "roots_eq_hashlib": edge_roots == merkle_proof.fold_branches_host(corrupted)}
+    assert mk["edge"]["false_at"] == [bad] and edge_launches == 4 and edge_err == 0 \
+        and mk["edge"]["roots_eq_hashlib"], mk["edge"]
+    # the committed state_proof vectors, and the self-test over the planes
+    vdir = os.path.join(HERE, "tests", "vectors", "merkle_proof", "state_proof")
+    vq, vroots, vwant = [], [], []
+    for name in sorted(os.listdir(vdir)):
+        with open(os.path.join(vdir, name)) as f:
+            case = json.load(f)
+        i = case["input"]
+        vq.append((bytes.fromhex(i["leaf"][2:]), [bytes.fromhex(b[2:]) for b in i["branch"]], i["gindex"]))
+        vroots.append(bytes.fromhex(i["state_root"][2:]))
+        vwant.append(case["output"])
+    mk["vectors"] = {"cases": len(vq),
+                     "verdicts": merkle_proof.batch_verify_branches(vq, vroots, consumer="bench",
+                                                                    device="cuda")}
+    mk["selftest"] = GUARD.self_test()
+    assert mk["vectors"]["verdicts"] == vwant and vwant.count(True) == 3 \
+        and mk["selftest"] == {"bls": True, "kzg": True, "merkle_proof": True}, mk
+    emit("merkle", **mk)
+    records["merkle_phase"] = mk
+    GUARD.reset()
+
+    # ----------------------------------------- 7g. the slot program (slot_program)
+    # one program: the slot's 64 committee submissions (consumer oppool),
+    # phase 7e's six-blob settle and 1,024 depth-6 Merkle queries, canary on
+    # (the sentinel's key is in the table since 7c)
+    sp = {}
+    pq = merkle_q[1_024]
+
+    def program(settle_blobs=blobs, subs=committees, queries=pq, seed=None):
+        work = SettleWork(settle_blobs, comms, proofs)
+        prog = SlotProgram(seed=seed).add_settle(work)
+        for c in subs:
+            prog.add_signatures(c, consumer="oppool")
+        prog.add_merkle(queries, merkle_roots[1_024], consumer="light_client")
+        return prog, work
+
+    prog, work = program(seed=80)
+    d0 = GUARD.stats()["dispatches"]
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    ok, record = prog.run(backend="gpu", device="cuda")
+    first_wall = time.perf_counter() - t0
+    program_launches = dict(cuda_build.LAUNCHES)
+    sp["dispatches"] = GUARD.stats()["dispatches"] - d0
+    assert ok is True and work.verdicts == [True] and prog.merkle_results == [[True] * len(pq)], \
+        (ok, work.verdicts)
+    assert sp["dispatches"] == 1, sp
+    missing = [k for k in PROGRAM_KERNELS if program_launches[k] == 0]
+    assert not missing, f"slot_program: the program launched no {missing}"
+    walls = [first_wall]
+    for r in range(2):
+        prog, work = program(seed=81 + r)
+        t0 = time.perf_counter()
+        assert prog.run(backend="gpu", device="cuda")[0] is True and work.verdicts == [True]
+        walls.append(time.perf_counter() - t0)
+    # the serial calls on the same inputs: the canary pair, the settle, the
+    # Merkle check and the fold with the valid sentinel riding it
+    serial = {}
+    serial_launches = {}
+
+    def serial_call(name, fn):
+        ws = []
+        for r in range(3):
+            cuda_build.reset_launches()
+            t0 = time.perf_counter()
+            out = fn(r)
+            ws.append(time.perf_counter() - t0)
+            if r == 0:
+                for k, v in cuda_build.LAUNCHES.items():
+                    serial_launches[k] = serial_launches.get(k, 0) + v
+        serial[name] = {"p50_s": statistics.median(ws), "walls_s": ws}
+        return out
+
+    serial_call("canary_pair", lambda r: canary.check_pair("gpu", device=dev))
+    assert serial_call("settle", lambda r: pkzg.verify_blob_kzg_proof_batch(
+        blobs, comms, proofs, backend="gpu", consumer="kzg", device="cuda")) is True
+    assert serial_call("merkle", lambda r: merkle_proof.batch_verify_branches(
+        pq, merkle_roots[1_024], consumer="light_client", device="cuda")) == [True] * len(pq)
+    assert serial_call("fold", lambda r: api.verify_signature_sets_shared(
+        [(c, "oppool") for c in committees], seed=90 + r,
+        extra_sets=[canary.bls_sentinels()[0]], device="cuda"))[0] is True
+    fused = {k: v for k, v in program_launches.items() if v}
+    summed = {k: v for k, v in serial_launches.items() if v}
+    assert fused == summed, ("slot_program: launches", fused, summed)
+    sp.update({"sets": sum(len(c) for c in committees), "blobs": len(blobs), "queries": len(pq),
+               "verdict": ok, "settle": True, "merkle_all_true": True, "launches": fused,
+               "serial_launches_sum": summed, "wall_p50_s": statistics.median(walls),
+               "walls_s": walls, "serial": serial,
+               "serial_sum_p50_s": sum(serial[k]["p50_s"] for k in ("settle", "merkle", "fold")),
+               "record": {k: record.get(k) for k in ("lanes", "live", "waste", "amortized_fixed_ms")}})
+    # the verdict pattern: a tampered blob, a forged signature in committee
+    # 31, a corrupted sibling of query 100
+    prog, work = program(settle_blobs=tampered)
+    sp["tampered_blob"] = {"program": prog.run(backend="gpu", device="cuda")[0], "settle": work.verdicts}
+    prog, work = program(subs=bad_committees)
+    sp["forged_committee_31"] = {"program": prog.run(backend="gpu", device="cuda")[0],
+                                 "settle": work.verdicts}
+    leaf, branch, g = pq[100]
+    bad_q = pq[:100] + [(leaf, [branch[0], bytes([branch[1][0] ^ 1]) + branch[1][1:]] + branch[2:], g)] \
+        + pq[101:]
+    prog, work = program(queries=bad_q)
+    ok_bad = prog.run(backend="gpu", device="cuda")[0]
+    sp["corrupted_sibling"] = {"program": ok_bad, "settle": work.verdicts,
+                               "false_at": [i for i, v in enumerate(prog.merkle_results[0]) if not v]}
+    assert sp["tampered_blob"] == {"program": True, "settle": [False]}, sp["tampered_blob"]
+    assert sp["forged_committee_31"] == {"program": False, "settle": [True]}, sp["forged_committee_31"]
+    assert sp["corrupted_sibling"] == {"program": False, "settle": [True], "false_at": [100]}, \
+        sp["corrupted_sibling"]
+
+    # through the bus: 64 committee submissions from 8 threads; thread 0
+    # stages the settle and submits committee 0 first, the others start once
+    # that submission's flush has formed its batch
+    bus = VerificationBus(backend="gpu", journal=Journal())
+    work = SettleWork(blobs, comms, proofs)
+    bus_verdicts = [None] * N_COMMITTEES
+    bus_errors = []
+
+    def bus_worker(tid):
+        try:
+            for g in range(tid, N_COMMITTEES, 8):
+                if g == 0:
+                    bus.stage_program_work(work)
+                    bus_verdicts[g] = bus.submit(committees[g], consumer="oppool",
+                                                 journal_attrs={"program": 1})
+                    continue
+                while bus.stats()["batches_formed"] < 1:
+                    time.sleep(0.001)
+                bus_verdicts[g] = bus.submit(committees[g], consumer="oppool")
+        except Exception as e:  # a fault fails the phase below
+            bus_errors.append(repr(e))
+
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    ths = [threading.Thread(target=bus_worker, args=(t,)) for t in range(8)]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join()
+    bus_wall = time.perf_counter() - t0
+    st = bus.stats()
+    staged_ev = [e for e in bus.journal.query(kind="signature_batch") if e["attrs"].get("program")]
+    only = SettleWork(blobs, comms, proofs)
+    settle_only = bus.submit_program(only)
+    sp["bus"] = {"submissions": N_COMMITTEES, "threads": 8, "wall_s": bus_wall,
+                 "errors": bus_errors, "settle": work.verdicts, "triggers": st["triggers"],
+                 "staged_trigger": [e["attrs"]["trigger"] for e in staged_ev],
+                 "batches_formed": st["batches_formed"], "launches": dict(cuda_build.LAUNCHES),
+                 "settle_only": {"program": settle_only, "settle": only.verdicts}}
+    assert not bus_errors and bus_verdicts == [True] * N_COMMITTEES, bus_errors
+    assert work.verdicts == [True] and sp["bus"]["staged_trigger"] == ["bulk"], sp["bus"]
+    assert settle_only is True and only.verdicts == [True], sp["bus"]["settle_only"]
+    # an injected stall reaches the program's submitter, the work
+    # undelivered; a flip on the canaried program raises CanaryViolation
+    GUARD.reset()
+    INJECTOR.arm("stall", "bls", rate=1.0, seed=3)
+    stalled = SettleWork(blobs, comms, proofs)
+    bus2 = VerificationBus(backend="gpu")
+    bus2.stage_program_work(stalled)
+    try:
+        bus2.submit(committees[0], consumer="oppool")
+        raise AssertionError("slot_program: an injected stall went unseen")
+    except DeviceFaultError as e:
+        sp["stall"] = {"raised": type(e).__name__, "settle": stalled.verdicts}
+    INJECTOR.reset()
+    GUARD.reset()
+    INJECTOR.arm("flip", "bls", rate=1.0, seed=9)
+    prog, work = program()
+    try:
+        prog.run(backend="gpu", device="cuda")
+        raise AssertionError("slot_program: a flip went unseen")
+    except CanaryViolation as e:
+        sp["flip"] = {"raised": type(e).__name__, "settle": work.verdicts,
+                      "merkle_results": prog.merkle_results}
+    INJECTOR.reset()
+    GUARD.reset()
+    assert sp["stall"] == {"raised": "DeviceStallInjected", "settle": []}, sp["stall"]
+    assert sp["flip"] == {"raised": "CanaryViolation", "settle": [], "merkle_results": []}, sp["flip"]
+    records["slot_program"] = sp
+    print(smi, flush=True)
+    emit("slot_program", **sp)
+
     # ------------------------------------------- 8. tensor-core probe
     probe = {form: mma_probe.probe(form, dev) for form in mma_probe.FORMS}
     probe_launches = {}
@@ -1501,6 +1812,10 @@ def main() -> int:
                         "lanes (ms_1058, ms_1024: the slice and the edge batch, the 1,024-lane slice); "
                         "held and plain_ms on the slice plus two 8-lane warps and a 34-lane edge "
                         "batch; launches from the ingest run"),
+        "sha256_fold": (csrc + "sha256_fold.cu", "lighthouse_tpu/ops/merkle_proof.py:130",
+                        "XLA on the TPU, no Pallas kernel (_fold_kernel); ms at 16,384 depth-6 "
+                        "lanes (ms_1024 at 1,024); launches from one batch_merkle_roots call at "
+                        "16,384; hashlib_ms the host oracle on the same queries"),
     }
     # the kzg block's shapes (32 lanes at 64 windows, a fold of 32 -> 2, two
     # pairs) and the MSMs' (the fold of 64 x 4,096 lanes, the Horner ladder
@@ -1530,13 +1845,19 @@ def main() -> int:
         elif name == "subgroup_g2":
             rec, launches = records["subgroup"], ingest_launches[name]
             entry.update({k: rec[k] for k in ("lanes", "ms_1058", "ms_1024")})
+        elif name == "sha256_fold":
+            rec, launches = records["merkle"][16_384], records["merkle"][16_384]["launches"]
+            entry.update(lanes=16_384, depth=MERKLE_DEPTH, ms_1024=records["merkle"][1_024]["ms"],
+                         bound_ms_1024=records["merkle"][1_024]["bound_ms"],
+                         hashlib_ms=rec["hashlib_ms"], hashlib_ms_1024=records["merkle"][1_024]["hashlib_ms"],
+                         bound_formula_ms=rec["bound_formula_ms"])
         else:
             rec, launches = records["probe"][name], probe_launches[name]
         entry.update({
             "launches": launches, "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms"), "held": True,
-            "note": note,
+            "note": note, "slot_program_launches": program_launches.get(name, 0),
         })
         if name == "miller":
             entry["per_set"] = records["per_set"]["miller"] | {"launches": per_set_launches[name]}

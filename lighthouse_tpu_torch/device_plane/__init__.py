@@ -14,8 +14,9 @@ The port of `lighthouse_tpu/device_plane/`, without the failover tier:
                     metrics and ``device_fault`` journal events; a fault
                     reaches the caller as a ``DeviceFaultError``;
   * ``canary``    — the bls known-answer sentinel pair for
-                    canary-verified bus batches, and the bls and kzg
-                    pairs of the startup self-test.
+                    canary-verified bus batches and slot programs, and
+                    the bls, kzg and merkle_proof pairs of the startup
+                    self-test.
 
 Callers reach everything through the process-global ``GUARD`` (one card,
 one set of loaded kernel libraries).

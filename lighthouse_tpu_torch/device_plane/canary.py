@@ -1,17 +1,19 @@
 """Known-answer sentinel material for canary-verified device batches.
 
-The port of `lighthouse_tpu/device_plane/canary.py`, on the `bls` and
-`kzg` planes (the `merkle_proof` plane comes with its slice of the port).
-The only way to catch a card that COMPLETES but LIES is to keep asking it
-questions whose answers are known: one sentinel that must verify and one
-that must not. The port keeps its own copy of the reference's committed
-pairs beside this module: the bls pair
-(`tests/vectors/sentinel/bls/{valid,invalid}.json`, interop keypair 0 over
-a fixed message, the invalid one with a tampered message) in
-`sentinel_bls.json`, and the kzg pair
+The port of `lighthouse_tpu/device_plane/canary.py`, on its three planes:
+`bls`, `kzg` and `merkle_proof`. The only way to catch a card that
+COMPLETES but LIES is to keep asking it questions whose answers are known:
+one sentinel that must verify and one that must not. The port keeps its
+own copy of the reference's committed pairs beside this module: the bls
+pair (`tests/vectors/sentinel/bls/{valid,invalid}.json`, interop keypair 0
+over a fixed message, the invalid one with a tampered message) in
+`sentinel_bls.json`, the kzg pair
 (`tests/vectors/sentinel/kzg/{valid,invalid}.json`, a 4-element blob with
 its commitment and proof, the invalid one with a tampered blob) in
-`sentinel_kzg.json`. Two uses:
+`sentinel_kzg.json`, and the merkle_proof pair
+(`tests/vectors/sentinel/merkle_proof/{valid,invalid}.json`, a depth-3
+branch at gindex 11, the invalid one with its root's first byte flipped)
+in `sentinel_merkle_proof.json`. Two uses:
 
   * the verification bus splices the VALID sentinel into every canaried
     shared batch (an attribution-free extra set) and checks the
@@ -34,11 +36,12 @@ from lighthouse_tpu_torch.device_plane.executor import (
     CanaryViolation,
 )
 
-PLANES = ("bls", "kzg")
+PLANES = ("bls", "kzg", "merkle_proof")
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SENTINEL_FILE = os.path.join(_HERE, "sentinel_bls.json")
 KZG_SENTINEL_FILE = os.path.join(_HERE, "sentinel_kzg.json")
+MERKLE_SENTINEL_FILE = os.path.join(_HERE, "sentinel_merkle_proof.json")
 
 _lock = threading.Lock()
 _bls_sets: tuple | None = None
@@ -55,6 +58,13 @@ def kzg_vectors() -> dict:
     """{"valid": case, "invalid": case}, each {"blob", "commitment",
     "proof"} as hex, as the reference commits them."""
     with open(KZG_SENTINEL_FILE) as f:
+        return json.load(f)
+
+
+def merkle_vectors() -> dict:
+    """{"valid": case, "invalid": case}, each {"leaf", "branch" (hex
+    lists), "gindex", "root"}, as the reference commits them."""
+    with open(MERKLE_SENTINEL_FILE) as f:
         return json.load(f)
 
 
@@ -137,5 +147,17 @@ def self_test_plane(plane: str) -> bool:
                 bytes.fromhex(case["proof"]),
             )
             ok = ok and (got is want)
+        return ok
+    if plane == "merkle_proof":
+        from lighthouse_tpu_torch.ops.merkle_proof import fold_branches_host
+
+        ok = True
+        for name, want in (("valid", True), ("invalid", False)):
+            case = merkle_vectors()[name]
+            computed = fold_branches_host(
+                [(bytes.fromhex(case["leaf"]), [bytes.fromhex(b) for b in case["branch"]],
+                  int(case["gindex"]))]
+            )[0]
+            ok = ok and ((computed == bytes.fromhex(case["root"])) is want)
         return ok
     raise ValueError(f"no self-test for plane {plane!r} in the port (planes: {PLANES})")

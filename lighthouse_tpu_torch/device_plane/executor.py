@@ -73,7 +73,7 @@ DEFAULT_MIN_TIMEOUT_S = 5.0
 # dispatch that may pay it gets this
 DEFAULT_COLD_ALLOWANCE_S = 120.0
 
-DEFAULT_SELFTEST_PLANES = ("bls", "kzg")
+DEFAULT_SELFTEST_PLANES = ("bls", "kzg", "merkle_proof")
 
 
 class DeviceFaultError(RuntimeError):

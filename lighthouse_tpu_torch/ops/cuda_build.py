@@ -3,7 +3,7 @@
 Each source under `lighthouse_tpu_torch/csrc/` (one per kernel family; K1,
 K2, K3, the helpers, the subgroup check and the Fp product's timing include
 the register arithmetic of `fp_reg.cuh`, K2, K3 and the product through
-`lanes.cuh`)
+`lanes.cuh`; the SHA-256 fold of the Merkle plane includes nothing)
 compiles at first use into its own shared library with a plain C
 interface under `lighthouse_tpu_torch/build/`:
 
@@ -71,6 +71,7 @@ SOURCES = {
         "lh_mma_probe_bf16": [_P, _P, _I, _I, _I, _I, _P, _P],
     },
     "subgroup": {"lh_g2_subgroup": [_P, _P, _P, _I, _P, _P], "lh_g2_subgroup_blocks_per_sm": [_P, _P]},
+    "sha256_fold": {"lh_sha256_fold": [_P, _P, _P, _I, _I, _P, _P]},
 }
 
 # kernel name -> launches through its wrapper
@@ -93,6 +94,7 @@ LAUNCHES = {
     "mma_probe_i8": 0,
     "mma_probe_bf16": 0,
     "subgroup_g2": 0,
+    "sha256_fold": 0,
 }
 
 # source -> {"seconds": build time, "ptxas": ptxas -v report}

@@ -1,4 +1,5 @@
-"""Signature-set generators for the port's tests and its chip smoke run.
+"""Signature-set and Merkle-query generators for the port's tests and its
+chip smoke run.
 
 Large batches use the chained-addition form of `lighthouse_tpu/testing.py`
 (`fast_sequential`): secret keys are small consecutive integers and every
@@ -72,3 +73,16 @@ def forge(sets, i: int) -> list:
     s = sets[i]
     bad = SignatureSet(Signature(RG2.add(s.signature.point, _h(s.message))), s.pubkeys, s.message)
     return sets[:i] + [bad] + sets[i + 1 :]
+
+
+def proof_queries(n: int, depth: int) -> list:
+    """n deterministic (leaf, branch, gindex) Merkle queries at `depth`:
+    the light-client proof fixtures of `lighthouse_tpu/bench_lcserve.py`
+    (`_proof_queries`), leaves and siblings hashed from their indices."""
+    queries = []
+    for i in range(n):
+        leaf = hashlib.sha256(b"lcproof-leaf-%d" % i).digest()
+        branch = [hashlib.sha256(b"lcproof-sib-%d-%d" % (i, d)).digest() for d in range(depth)]
+        gindex = (1 << depth) + (i * 2654435761 % (1 << depth))
+        queries.append((leaf, branch, gindex))
+    return queries

@@ -1,7 +1,7 @@
 """Cross-subsystem verification bus: deadline-aware batch coalescing.
 
-The port of `lighthouse_tpu/verification_bus/bus.py`, with its `bls`
-kinds. Every BLS signature goes through ONE batch boundary
+The port of `lighthouse_tpu/verification_bus/bus.py`, with its `bls` and
+`slot_program` kinds. Every BLS signature goes through ONE batch boundary
 (`verify_signature_sets`), but the consumers (gossip singles, sync
 segments, sidecar headers, op-pool packing, the slasher) would each call
 the card on their own, so a small batch pays the card's whole fixed
@@ -19,7 +19,8 @@ across subsystems into shared device batches, flushing when:
     dispatch this bus performs);
   * **fill** — pending live sets reach the fill target;
   * **bulk** — a submission is big enough to amortize the fixed cost on
-    its own, and carries every pending single along;
+    its own, or is a slot program (an import's critical path), and
+    carries every pending single along;
   * **pressure** — the caller's pressure signal says the node is loaded;
   * **hold** — the oldest submission has waited its maximum hold (on
     host backends the default hold is ZERO — there is no fixed device
@@ -40,10 +41,18 @@ with the canary's pair checked first and the valid sentinel riding the
 batch; there is no failover tier, so a device fault reaches each
 submitter as a `DeviceFaultError`.
 
+A thread that staged an import's deferred KZG settle
+(`stage_program_work`) turns its next non-empty `submit` into a
+`slot_program` submission: the settle rides the same guarded dispatch as
+the signature fold (`ops/slot_program.py`), its verdict delivered through
+the staged work, never through `submit`'s return value. `submit_program`
+sends a settle alone through that boundary. A flush groups its
+submissions by (backend, kind), so a slot program and a plain batch never
+share a dispatch.
+
 `device` is where the "gpu" backend runs: the card by default, "cpu" for
-the plain versions (the tests). The reference's slot-program and DA-cell
-kinds (`stage_program_work`, `submit_program`, `submit_cells`) come with
-the port's slot program, KZG, Merkle and DA slices.
+the plain versions (the tests). The reference's DA-cell kind
+(`submit_cells`) comes with the port's data-availability slice.
 """
 
 import threading
@@ -126,11 +135,12 @@ class _Submission:
     __slots__ = (
         "sets", "consumer", "journal", "slot", "attrs", "backend",
         "budget_s", "submitted_at", "expires_at", "event", "result",
-        "exc", "done", "claimed", "dispatch_t0",
+        "exc", "done", "claimed", "dispatch_t0", "kind", "extra",
     )
 
     def __init__(
         self, sets, consumer, journal, slot, attrs, backend, budget_s,
+        kind="bls", extra=None,
     ):
         self.sets = sets
         self.consumer = consumer
@@ -150,6 +160,11 @@ class _Submission:
         # submission into a dispatch group — the slot-budget recorder's
         # queue-wait/dispatch split on the submitter side
         self.dispatch_t0 = None
+        # the shared-dispatch kind: "bls" (a signature batch) or
+        # "slot_program" (the fold and a staged settle in one program)
+        self.kind = kind
+        # kind-specific context (slot_program: {"work": the settle})
+        self.extra = extra
 
 
 class VerificationBus:
@@ -181,6 +196,9 @@ class VerificationBus:
         self.seed = seed
         self.wall_model = PredictedWallModel()
         self._lock = threading.Lock()
+        # thread-local slot-program staging: an import stages its deferred
+        # KZG settle here so that the same thread's next submit carries it
+        self._tls = threading.local()
         self._pending: list[_Submission] = []
         self._batch_seq = 0
         # counters (under _lock)
@@ -215,13 +233,20 @@ class VerificationBus:
         it never occupies a coalescing slot or joins a device batch.
 
         `deadline` is anything with `.remaining()` or a float budget in
-        seconds; None derives the class budget."""
+        seconds; None derives the class budget.
+
+        When this thread staged a settle (`stage_program_work`), the
+        submission becomes a `slot_program`: the settle rides the same
+        dispatch as the signature fold, its verdict delivered through the
+        staged work."""
         sets = list(sets)
         if not sets:
             # still validate the label — a typo'd consumer must fail
-            # loudly here like it would on the non-empty path
+            # loudly here like it would on the non-empty path. A staged
+            # settle stays staged for the next non-empty submit.
             attribution.normalize(consumer)
             return True
+        work = self.pop_staged_work()
         consumer = attribution.normalize(consumer)
         _SUBMITTED.labels(consumer).inc()
         budget_s = self._budget_for(consumer, deadline)
@@ -233,6 +258,52 @@ class VerificationBus:
             journal_attrs,
             backend or self.backend,
             budget_s,
+            kind="slot_program" if work is not None else "bls",
+            extra={"work": work} if work is not None else None,
+        )
+        return self._submit_and_wait(sub)
+
+    def stage_program_work(self, work):
+        """Stage one import's deferred device work (anything with
+        `payload() -> (blobs, commitments, proofs, backend)` and
+        `deliver(verdict)`) on THIS thread: the next non-empty `submit`
+        from the same thread folds it into a slot program."""
+        self._tls.staged_work = work
+
+    def pop_staged_work(self):
+        """Claim (and clear) this thread's staged program work."""
+        work = getattr(self._tls, "staged_work", None)
+        if work is not None:
+            self._tls.staged_work = None
+        return work
+
+    def submit_program(
+        self,
+        work,
+        consumer: str = "kzg",
+        deadline=None,
+        journal=None,
+        slot=None,
+        backend: str | None = None,
+    ) -> bool:
+        """Submit a settle-only slot program (an import with no signature
+        fold still wants the guarded one-dispatch boundary for its
+        settle). Blocks until the program ran; the settle verdict reaches
+        the caller through `work.deliver`, and the returned bool is the
+        program's group verdict, True for a healthy settle-only run."""
+        consumer = attribution.normalize(consumer)
+        _SUBMITTED.labels(consumer).inc()
+        budget_s = self._budget_for(consumer, deadline)
+        sub = _Submission(
+            [],
+            consumer,
+            journal if journal is not None else self.journal,
+            slot,
+            None,
+            backend or self.backend,
+            budget_s,
+            kind="slot_program",
+            extra={"work": work},
         )
         return self._submit_and_wait(sub)
 
@@ -244,8 +315,11 @@ class VerificationBus:
         # caller-side slot-budget interval: the submit-to-verdict span
         # IS the import's causal device round trip (the flush may run
         # on another submitter's thread — this thread still blocks for
-        # exactly that long)
-        _budget_tok = slot_budget.open_dispatch(sub.consumer, kind="bus")
+        # exactly that long); a slot program marks kind "fused"
+        _budget_tok = slot_budget.open_dispatch(
+            sub.consumer,
+            kind="fused" if sub.kind == "slot_program" else "bus",
+        )
         try:
             with self._lock:
                 self._pending.append(sub)
@@ -349,6 +423,10 @@ class VerificationBus:
         pending = [s for s in self._pending if not s.claimed]
         if not pending:
             return None
+        if any(s.kind == "slot_program" for s in pending):
+            # a slot program is an import's critical path carrying its own
+            # settle: holding it for co-riders only delays that import
+            return "bulk"
         live = sum(len(s.sets) for s in pending)
         if live >= self.fill_target:
             return "fill"
@@ -372,9 +450,8 @@ class VerificationBus:
     # ------------------------------------------------------------ dispatch
 
     def _flush(self, trigger: str):
-        """Form one (or, with mixed backend overrides, one per
-        backend) shared batch from everything pending and deliver
-        verdicts. Runs on whichever submitter thread hit the trigger;
+        """Form one shared batch a (backend, kind) from everything
+        pending and deliver verdicts. Runs on whichever submitter thread hit the trigger;
         the device dispatch happens OUTSIDE the bus lock so new
         submissions keep queueing behind it."""
         with self._lock:
@@ -386,8 +463,8 @@ class VerificationBus:
             return
         groups: dict = {}
         for s in batch:
-            groups.setdefault(s.backend, []).append(s)
-        for backend, subs in groups.items():
+            groups.setdefault((s.backend, s.kind), []).append(s)
+        for (backend, _kind), subs in groups.items():
             self._dispatch_group(subs, backend, trigger)
 
     def _dispatch_group(self, subs, backend, trigger: str):
@@ -413,6 +490,44 @@ class VerificationBus:
             if stragglers:
                 with self._lock:
                     self._completed += len(stragglers)
+
+    def _shared_verify(self, subs, backend):
+        """Kind dispatch: a group is homogeneous by construction (the
+        flush groups by (backend, kind))."""
+        if subs[0].kind == "slot_program":
+            return self._program_shared_verify(subs, backend)
+        return self._guarded_shared_verify(subs, backend)
+
+    def _program_shared_verify(self, subs, backend):
+        """The slot-program dispatch: the group's signature sets and each
+        submission's staged settle run as ONE guarded program
+        (`ops/slot_program.py`) on the "bls" plane -- the same breaker,
+        canary sentinels and injection as the plain path. The returned
+        (ok, record) is the signature verdict, the group contract that the
+        mixed-batch retry isolates per submission; settle verdicts fan back
+        through each work's `deliver`."""
+        from lighthouse_tpu_torch import bls
+        from lighthouse_tpu_torch.ops.slot_program import SlotProgram
+
+        program = SlotProgram(seed=self.seed)
+        for s in subs:
+            if s.sets:
+                program.add_signatures(s.sets, s.consumer)
+            work = (s.extra or {}).get("work")
+            if work is not None:
+                program.add_settle(work)
+        effective = backend or bls.api.default_backend()
+        journal = next((s.journal for s in subs if s.journal is not None), None)
+        slot = next((s.slot for s in subs if s.slot is not None), None)
+        return program.run(
+            backend=backend,
+            journal=journal,
+            slot=slot,
+            predicted_s=self.wall_model.predict_s(
+                max(1, program.total_live()), cold_risk=self._cold_risk(effective)
+            ),
+            device=self.device,
+        )
 
     def _guarded_shared_verify(self, subs, backend):
         """The shared dispatch, routed through the device-plane guard
@@ -486,7 +601,7 @@ class VerificationBus:
         exc = None
         record = None
         try:
-            ok, record = self._guarded_shared_verify(subs, backend)
+            ok, record = self._shared_verify(subs, backend)
         except Exception as e:
             ok = False
             exc = e
@@ -526,7 +641,7 @@ class VerificationBus:
             sub_exc = None
             sub_record = None
             try:
-                ok_i, sub_record = self._guarded_shared_verify([s], backend)
+                ok_i, sub_record = self._shared_verify([s], backend)
             except Exception as e:
                 ok_i = False
                 sub_exc = e
@@ -561,6 +676,10 @@ class VerificationBus:
         for s, ok_i in zip(subs, verdicts):
             journal = s.journal
             if journal is None:
+                continue
+            if s.kind == "slot_program" and not s.sets:
+                # a settle-only program counted no signature sets on the
+                # registry side, so it emits no signature_batch event
                 continue
             attrs = {
                 "consumer": s.consumer,

@@ -295,3 +295,99 @@ def test_gpu_backend_submission_on_the_plain_versions():
     assert ev["attrs"]["n_sets"] == 1 and ev["attrs"]["batch_live"] == 1
     assert ev["attrs"]["lanes"] == 4 and ev["attrs"]["backend"] == "gpu"
     assert pcanary.bls_sentinels()[0].signature.in_subgroup()
+
+
+# ------------------------------------------------- slot-program kinds
+
+
+class _SettleWork:
+    """A staged settle on the fake backend: a payload, and every delivered
+    verdict recorded."""
+
+    def __init__(self):
+        self.verdicts = []
+
+    def payload(self):
+        return [bytes(256)], [bytes(48)], [bytes(48)], "fake"
+
+    def deliver(self, verdict):
+        self.verdicts.append(verdict)
+
+
+def _program_scenario(name, side, s):
+    """Run one slot-program scenario on one package's bus; returns
+    (results, bus, journal, work)."""
+    _, busmod, _, Journal, *_ = SIDES[side]
+    j = Journal()
+    good = s["good"]
+    work = _SettleWork()
+    res = {}
+    bus = busmod.VerificationBus(backend="fake", journal=j, max_hold_ms=5000.0)
+    if name == "staged":
+        bus.stage_program_work(work)
+        _submit(bus, res, "staged", [good], "gossip_single")
+        res["left_staged"] = bus.pop_staged_work() is not None
+    elif name == "staging_is_thread_local":
+        bus.stage_program_work(work)
+        bus.max_hold_ms = 0.0  # the plain single passes straight through
+        t = threading.Thread(target=_submit, args=(bus, res, "other_thread", [good], "oppool"))
+        t.start()
+        t.join(timeout=30)
+        res["left_staged"] = bus.pop_staged_work() is work
+    elif name == "empty_submit_keeps_staged":
+        bus.stage_program_work(work)
+        _submit(bus, res, "empty", [], "gossip_single")
+        res["left_staged"] = bus.pop_staged_work() is work
+    elif name == "program_and_plain_flush_apart":
+        def staged_last():
+            bus.stage_program_work(work)
+            _submit(bus, res, "staged", [good], "gossip_single")
+
+        held = threading.Thread(target=_submit, args=(bus, res, "held", [good], "oppool"))
+        held.start()
+        _wait_pending(bus, 1)
+        staged_last()
+        held.join(timeout=30)
+    elif name == "settle_only":
+        res["program"] = bus.submit_program(work, slot=9)
+    else:
+        raise ValueError(name)
+    return res, bus, j, work
+
+
+PROGRAM_SCENARIOS = ["staged", "staging_is_thread_local", "empty_submit_keeps_staged",
+                     "program_and_plain_flush_apart", "settle_only"]
+
+
+@pytest.mark.parametrize("name", PROGRAM_SCENARIOS)
+def test_slot_program_kinds_match_the_reference(sets, name):
+    """Staging, the slot_program kind, its "bulk" trigger, the (backend,
+    kind) grouping and the settle-only program on both buses ("fake"): the
+    same verdicts, deliveries, stats, journal events and dispatches."""
+    out = {}
+    for side in SIDES:
+        attr = SIDES[side][2]
+        before = dict(attr.consumer_totals())
+        res, bus, j, work = _program_scenario(name, side, sets[side])
+        after = attr.consumer_totals()
+        delta = {c: v - before.get(c, 0) for c, v in after.items() if v != before.get(c, 0)}
+        out[side] = (res, work.verdicts, _bus_stats(bus), _journal(j, attr.FIXED_DEVICE_COST_MS),
+                     delta, SIDES[side][4].stats()["dispatches"])
+    assert out["port"] == out["ref"]
+    res, delivered, st, events, _, dispatches = out["port"]
+    if name == "staged":
+        assert res == {"staged": True, "left_staged": False} and delivered == [True]
+        assert st["triggers"] == {"bulk": 1} and len(events) == 1
+    elif name == "staging_is_thread_local":
+        assert res == {"other_thread": True, "left_staged": True} and delivered == []
+        assert st["triggers"] == {"passthrough": 1}
+    elif name == "empty_submit_keeps_staged":
+        assert res == {"empty": True, "left_staged": True} and delivered == []
+        assert st["batches_formed"] == 0 and dispatches == 0
+    elif name == "program_and_plain_flush_apart":
+        assert res == {"held": True, "staged": True} and delivered == [True]
+        assert st["batches_formed"] == 2 and st["triggers"] == {"bulk": 2} and dispatches == 2
+        assert [e[3]["n_submissions"] for e in events] == [1, 1]
+    else:
+        assert res == {"program": True} and delivered == [True]
+        assert events == [] and st["triggers"] == {"bulk": 1} and dispatches == 1

@@ -331,7 +331,7 @@ def test_sentinel_pair_is_the_committed_one():
         assert [k.to_bytes() for k in p.pubkeys] == [k.to_bytes() for k in r.pubkeys]
         assert p.message == r.message
     with pytest.raises(ValueError):
-        pcanary.self_test_plane("merkle_proof")
+        pcanary.self_test_plane("da_cells")
 
 
 def test_check_pair_and_flip(clean_globals):
@@ -366,13 +366,14 @@ def test_canary_violation_quarantines_the_plane(clean_globals):
 def test_self_test_quarantines_a_failing_plane(monkeypatch, clean_globals):
     g = pexec.GuardedExecutor()
     j = PJournal()
-    assert g.self_test(journal=j) == {"bls": True, "kzg": True}
+    assert g.self_test(journal=j) == {"bls": True, "kzg": True, "merkle_proof": True}
     monkeypatch.setattr(pcanary, "self_test_plane", lambda plane: False)
-    assert g.self_test(journal=j) == {"bls": False, "kzg": False}
+    assert g.self_test(journal=j) == {"bls": False, "kzg": False, "merkle_proof": False}
     assert g.breaker.state_of("bls", "anything") == "open"
     assert g.breaker.state_of("kzg", "anything") == "open"
+    assert g.breaker.state_of("merkle_proof", "anything") == "open"
     outcomes = [e["outcome"] for e in j.query(kind="device_fault")]
-    assert outcomes == ["selftest_ok"] * 2 + ["fault", "breaker_open", "selftest_failed"] * 2
+    assert outcomes == ["selftest_ok"] * 3 + ["fault", "breaker_open", "selftest_failed"] * 3
 
 
 def test_canary_modes():

@@ -22,7 +22,8 @@ from lighthouse_tpu_torch import testing as T
 from lighthouse_tpu_torch.bls import api, gpu_backend
 from lighthouse_tpu_torch.bls.device_pubkey_table import DevicePubkeyTable
 from lighthouse_tpu_torch.ops import cuda_build, curve_kernels, field as fd
-from lighthouse_tpu_torch.ops import final_exp, ladder, miller, mma_probe, subgroup
+from lighthouse_tpu_torch.ops import final_exp, ladder, merkle_proof, miller, mma_probe, subgroup
+from lighthouse_tpu_torch.ops.slot_program import SlotProgram
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "lighthouse_tpu_torch")
@@ -78,7 +79,7 @@ def test_every_kernel_has_a_source_and_a_counter():
         "ladder_g1", "ladder_g2", "miller", "fold_final_exp",
         "lane_sum_g1", "lane_sum_g2", "to_affine_g1", "to_affine_g2",
         "jacobian_to_affine_g1", "jacobian_to_affine_g2", "ladder_g1_chain", "ladder_g2_chain", "ladder_g1_w2", "ladder_g2_w2",
-        "pair_final_exp", "mma_probe_i8", "mma_probe_bf16", "subgroup_g2",
+        "pair_final_exp", "mma_probe_i8", "mma_probe_bf16", "subgroup_g2", "sha256_fold",
     }
 
 
@@ -124,6 +125,10 @@ WRAPPERS = {
     ),
     "subgroup_g2": lambda: subgroup.g2_in_subgroup(
         *_point(2, 4)[:2], torch.ones(4, dtype=torch.bool), require_kernel=True
+    ),
+    "sha256_fold": lambda: merkle_proof.fold_branches(
+        torch.zeros((4, 8), dtype=torch.int32), torch.zeros((4, 2, 8), dtype=torch.int32),
+        torch.zeros((4, 2), dtype=torch.int32), require_kernel=True
     ),
 }
 
@@ -177,14 +182,25 @@ def test_cuda_device_without_gpu_raises():
     [
         lambda sets: gpu_backend.check_signature_subgroups([s.signature for s in sets], device="cuda"),
         lambda sets: api.verify_signature_set_batches([sets], seed=0, device="cuda"),
+        lambda sets: merkle_proof.batch_merkle_roots(
+            [(bytes(32), [bytes(32)], 2)], consumer="bench", device="cuda"),
+        lambda sets: SlotProgram(seed=0).add_signatures(sets, "oppool").add_merkle(
+            [(bytes(32), [bytes(32)], 2)], [bytes(32)]).run(backend="gpu", device="cuda"),
     ],
-    ids=["check_signature_subgroups", "verify_signature_set_batches"],
+    ids=["check_signature_subgroups", "verify_signature_set_batches", "batch_merkle_roots",
+         "SlotProgram.run"],
 )
-def test_new_entry_points_without_gpu_raise(call):
+def test_new_entry_points_without_gpu_raise(call, monkeypatch):
+    """Each raises before any plain version runs: no fold, no plain
+    product."""
     _needs_no_gpu()
     sets = T.flat_sets(T.validator_pubkeys(2), 1, max_keys=1, seed=0)
+    ran = []
+    monkeypatch.setattr(merkle_proof, "fold_branches_plain", lambda *a: ran.append("fold"))
+    products = fd.FP_PRODUCTS
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call(sets)
+    assert ran == [] and fd.FP_PRODUCTS == products
 
 
 def test_cuda_table_without_gpu_raises():

@@ -156,14 +156,39 @@ non-zero without its result line:
     settle-only submit_program; an injected stall reaching the program's
     submitter as DeviceFaultError with the work undelivered; a flip on the
     canaried program raising CanaryViolation;
+ 7h. da: the data-availability plane at mainnet width (types/spec.py:
+    6 blobs of 4,096 elements, cells of 64, 128 columns on 128 subnets,
+    custody 4; phase 7e's blobs and setup): the Fr Horner kernel
+    (csrc/rs_extend.cu) word for word against its plain version at 6 blobs
+    (bucket 8) x 8,192 points, its device time beside its bound (Fr
+    products x 256 multiply-adds on the live lanes), ptxas's registers,
+    stack frame and spills (none allowed), 64 seeded points of every blob
+    against host Horner, its plain_out form on Montgomery coefficients
+    equal to it; an edge batch (a zero blob, a blob of all r - 1; 1, 3 and
+    6 blobs, one launch each); extend_blobs(backend="gpu") equal to the
+    held output, wall p50 of 3; the six blobs' cells and proofs through
+    "gpu" (one extension and 128 fixed-base MSMs a blob: its launches),
+    cells 0, 1 and 127 of blob 0 against host Horner and their proofs
+    against "ref"; the custody sample (custody_columns("node-0"): 24 cells)
+    True with the KZG verify's launches, wall p50 of 3 with its host split;
+    a flipped cell byte, a wrong index and a swapped proof False; "ref"
+    True; the full block (768 cells) True with its split; K1, the lane
+    fold, to-affine, K2 and K3 at the custody sample's shapes against their
+    plain versions; reconstruction of a 1,024-element blob (32 columns: the
+    host's O(n^2) interpolation cut from 4,096) from exactly half its
+    columns, byte-equal, and DaError one column short; the bus: 128 column
+    submissions of 6 cells from 8 threads, all True, then 8 with one
+    corrupted column, which alone is False; an injected error on rs_extend
+    and on da_cells raising before any launch, the next call right;
  8. the tensor-core probe (lighthouse_tpu_torch.ops.mma_probe), int8 and
     bf16, exact against the probe's numpy check and the plain version,
     kernel and library call timed the same way (and each once more in one
     synchronised call, cuda_build.call_ms, which shows the host's share of
     a few-microsecond call); its launches are those of one `contract` call;
  9. the kernels line (the kernels of the kzg path carry a "kzg" record at
-    its shapes, with its launches; every kernel its launches in phase 7g's
-    program run), then {"ok": true, "device": {...}} as the last line.
+    its shapes, with its launches, and a "da" record at the cell verify's;
+    every kernel its launches in phase 7g's program run), then {"ok": true,
+    "device": {...}} as the last line.
 
 The kernel records also go to chiprun_out/chip_smoke_records.json.
 
@@ -187,6 +212,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 INT_OPS_PER_S = 132 * 64 * 1.98e9
 # one 12-word CIOS product: 2 x 144 32x32->64 multiply-adds, lo and hi halves
 IMAD_PER_FP_PRODUCT = 2 * 144 * 2
+# one 8-word Fr product (csrc/rs_extend.cu): 2 x 64, lo and hi halves
+IMAD_PER_FR_PRODUCT = 2 * 64 * 2
 
 # the kernels of verify_signature_sets with the default window ladder; the
 # flat batch's untagged keys also take the G1 Jacobian entry
@@ -210,6 +237,12 @@ KZG_VARIABLE_LAUNCHES = {"ladder_g1": 1, "lane_sum_g1": 2, "to_affine_g1": 1}
 # pair's per-set entry and the Merkle fold
 PROGRAM_KERNELS = BATCH_KERNELS + ("pair_final_exp", "sha256_fold")
 MERKLE_DEPTH = 6  # the light-client finality branch
+# the column-sampling constants of lighthouse_tpu/types/spec.py:132-150
+# (mainnet): 6 blobs of 4,096 elements, cells of 64, 128 columns on 128
+# subnets, custody 4
+MAINNET_DA = {"FIELD_ELEMENTS_PER_BLOB": 4_096, "FIELD_ELEMENTS_PER_CELL": 64,
+              "NUMBER_OF_COLUMNS": 128, "DATA_COLUMN_SIDECAR_SUBNET_COUNT": 128,
+              "CUSTODY_REQUIREMENT": 4, "MAX_BLOBS_PER_BLOCK": 6}
 
 # a point of order 13 on the twist E'(Fp2), affine (x0, x1, y0, y1): [h2 r / 169]
 # of an SSWU point (tests/test_torch_subgroup.py)
@@ -278,6 +311,10 @@ def main() -> int:
     from lighthouse_tpu_torch.ops import kzg_verify, msm as kmsm
     from lighthouse_tpu_torch.ops import merkle_proof
     from lighthouse_tpu_torch.ops.slot_program import SlotProgram
+    from lighthouse_tpu_torch.da import cells as da_cells, custody as da_custody
+    from lighthouse_tpu_torch.da import erasure as da_erasure, gpu_backend as da_gpu
+    from lighthouse_tpu_torch.da.domain import DaError, geometry, geometry_for_spec
+    from lighthouse_tpu_torch.ops import rfield, rs_extend
 
     os.makedirs(OUT, exist_ok=True)
     dev = torch.device("cuda")
@@ -401,13 +438,14 @@ def main() -> int:
     records = {}
 
     def hold(name, kernel_fn, plain_fn, inputs_bytes, reps=3, products=None, bound=None,
-             rows=None):
+             rows=None, extra=None):
         """Kernel vs plain on the same inputs: exact equality, times, bound.
         `products` replaces the plain version's Fp product count where the
         kernel's work depends on the data; `bound` = (ms, by) replaces the
         Fp product bound for a kernel that is not field arithmetic; `rows`,
         the products of the rows the kernel runs where that is more than
-        the function needs, is kept beside the bound as bound_rows_ms."""
+        the function needs, is kept beside the bound as bound_rows_ms;
+        `extra` goes into the record as it is."""
         out_k = kernel_fn()
         kernel_ms = cuda_build.time_ms(kernel_fn, reps)
         prod0 = fd.FP_PRODUCTS
@@ -439,6 +477,7 @@ def main() -> int:
         if rows is not None:
             rec["fp_products_rows"] = rows
             rec["bound_rows_ms"] = rows * IMAD_PER_FP_PRODUCT / INT_OPS_PER_S * 1e3
+        rec.update(extra or {})
         emit("kernel_vs_plain", kernel=name, held=err == 0, **rec)
         assert err == 0, f"{name}: kernel and plain version disagree"
         return rec
@@ -453,6 +492,44 @@ def main() -> int:
         keep = torch.as_tensor(live, device=mags.device).reshape(-1).to(torch.bool)
         assert keep.numel() == mags.shape[1], (keep.shape, mags.shape)
         return ladder_rows.step_products(w, *ladder_rows.window_steps_needed(mags[:, keep].cpu().numpy()))
+
+    def hold_verify_path(label, affs, scalars, tau_g2, recs):
+        """The kernels of `ops/kzg_verify.verify_kzg_proof_batch` step by
+        step on one verify's lanes (affine int pairs and scalars, the
+        second pair's G2 point `tau_g2`), each held against its plain
+        version into recs; the verdict of the steps must be 1."""
+        kx, ky, kmask = kzg_gpu._affine_words(affs)
+        k_mags, k_negs = (torch.from_numpy(a).to(dev).to(torch.int32).contiguous()
+                          for a in window_ladder.signed_digit_arrays(scalars, nbits=kmsm.SCALAR_BITS))
+        L = len(affs)
+        pts = bv._from_affine(bv._lanes(kx, dev), bv._lanes(ky, dev), bv._mask(kmask, dev))
+        emit("shapes", batch=label, lanes=L, windows=int(k_mags.shape[0]))
+        recs["ladder_g1"] = hold(
+            "ladder_g1", lambda: ladder.ladder(pts, k_mags, k_negs),
+            lambda: ladder.ladder_plain(pts, k_mags, k_negs), nb(pts, k_mags, k_negs),
+            products=k1_needed(1, k_mags, kmask),
+            rows=L * ladder_rows.lane_products(1, int(k_mags.shape[0])))
+        lanes_r = ladder.ladder(pts, k_mags, k_negs)
+        recs["lane_sum_g1"] = hold(
+            "lane_sum_g1", lambda: curve_kernels.lane_sum(lanes_r, L // 2),
+            lambda: curve_kernels.lane_sum_plain(lanes_r, L // 2), nb(lanes_r))
+        sums = curve_kernels.lane_sum(lanes_r, L // 2)
+        recs["to_affine_g1"] = hold(
+            "to_affine_g1", lambda: curve_kernels.to_affine(sums),
+            lambda: curve_kernels.to_affine_plain(sums), nb(sums),
+            products=curve_kernels.affine_products(1, False, 2))
+        px, py, pinf = curve_kernels.to_affine(sums)
+        tau = [torch.from_numpy(fd.mont_words(c)).to(dev) for c in tau_g2]
+        g2 = tuple(torch.stack([fd.matrix(gen, dev), t], dim=-1)
+                   for gen, t in zip(kzg_verify.G2_GEN_AFFINE, tau))
+        recs["miller"] = hold(
+            "miller", lambda: miller.miller_loop((px, py), g2, ~pinf),
+            lambda: miller.miller_loop_plain((px, py), g2, ~pinf), nb(px, py, g2, pinf))
+        kf = miller.miller_loop((px, py), g2, ~pinf)
+        recs["fold_final_exp"] = hold(
+            "fold_final_exp", lambda: final_exp.fold_final_exp(kf),
+            lambda: final_exp.fold_final_exp_plain(kf), nb(kf))
+        assert bool(final_exp.fold_final_exp(kf)[1]), f"{label}: stage-by-stage verdict is not 1"
 
     ladder_inputs = {}
     for label, sets, seed in (("grouped", slot, 3), ("flat", flat, 4)):
@@ -1391,38 +1468,7 @@ def main() -> int:
     recs = records.setdefault("kzg", {})
     _, zs, ys, cs, ws = kzg_api._batch_inputs(blobs, comms, proofs, setup)
     rs = kzg_api._rlc_scalars(KZG_BLOBS, 5)
-    affs, scalars = kzg_gpu.verify_lanes(cs, ws, rs, zs, ys)
-    kx, ky, kmask = kzg_gpu._affine_words(affs)
-    k_mags, k_negs = (torch.from_numpy(a).to(dev).to(torch.int32).contiguous()
-                      for a in window_ladder.signed_digit_arrays(scalars, nbits=kmsm.SCALAR_BITS))
-    L = len(affs)
-    pts = bv._from_affine(bv._lanes(kx, dev), bv._lanes(ky, dev), bv._mask(kmask, dev))
-    emit("shapes", batch="kzg_block", lanes=L, windows=int(k_mags.shape[0]))
-    recs["ladder_g1"] = hold(
-        "ladder_g1", lambda: ladder.ladder(pts, k_mags, k_negs),
-        lambda: ladder.ladder_plain(pts, k_mags, k_negs), nb(pts, k_mags, k_negs),
-        products=k1_needed(1, k_mags, kmask), rows=L * ladder_rows.lane_products(1, int(k_mags.shape[0])))
-    lanes_r = ladder.ladder(pts, k_mags, k_negs)
-    recs["lane_sum_g1"] = hold(
-        "lane_sum_g1", lambda: curve_kernels.lane_sum(lanes_r, L // 2),
-        lambda: curve_kernels.lane_sum_plain(lanes_r, L // 2), nb(lanes_r))
-    sums = curve_kernels.lane_sum(lanes_r, L // 2)
-    recs["to_affine_g1"] = hold(
-        "to_affine_g1", lambda: curve_kernels.to_affine(sums),
-        lambda: curve_kernels.to_affine_plain(sums), nb(sums),
-        products=curve_kernels.affine_products(1, False, 2))
-    px, py, pinf = curve_kernels.to_affine(sums)
-    tau = [torch.from_numpy(fd.mont_words(c)).to(dev) for c in setup.tau_g2]
-    g2 = tuple(torch.stack([fd.matrix(gen, dev), t], dim=-1)
-               for gen, t in zip(kzg_verify.G2_GEN_AFFINE, tau))
-    recs["miller"] = hold(
-        "miller", lambda: miller.miller_loop((px, py), g2, ~pinf),
-        lambda: miller.miller_loop_plain((px, py), g2, ~pinf), nb(px, py, g2, pinf))
-    kf = miller.miller_loop((px, py), g2, ~pinf)
-    recs["fold_final_exp"] = hold(
-        "fold_final_exp", lambda: final_exp.fold_final_exp(kf),
-        lambda: final_exp.fold_final_exp_plain(kf), nb(kf))
-    assert bool(final_exp.fold_final_exp(kf)[1]), "kzg: stage-by-stage verdict is not 1"
+    hold_verify_path("kzg_block", *kzg_gpu.verify_lanes(cs, ws, rs, zs, ys), setup.tau_g2, recs)
     # the fixed-base MSM: the selection (indexing, no kernel), the fold of
     # 64 x 4,096 lanes to the 64 window sums, the Horner ladder on 64 lanes
     # and its fold
@@ -1762,6 +1808,293 @@ def main() -> int:
     print(smi, flush=True)
     emit("slot_program", **sp)
 
+    # ------------------------------------------ 7h. data availability (da)
+    # the DA plane at mainnet width (MAINNET_DA; phase 7e's six blobs and
+    # setup): the Horner kernel against its plain version at 6 blobs (bucket
+    # 8) x 8,192 points, exact; 64 seeded points of every blob against host
+    # Horner; its plain_out form (rs_extend_graph) on Montgomery
+    # coefficients equal to it; an edge batch (a zero blob, a blob of all
+    # r - 1, blob counts 1, 3 and 6); extend_blobs p50; the six blobs' cells
+    # and proofs, three of blob 0 against "ref"; cell verifies (the custody
+    # sample, the full block, three tampered batches, "ref"); reconstruction
+    # at 1,024 elements; the bus; the guard
+    GUARD.reset()
+    INJECTOR.reset()
+    dspec = type("MainnetDA", (), MAINNET_DA)()
+    dgeo = geometry_for_spec(dspec)
+    dn = len(blobs)
+    dm = dgeo.cell_elements
+    da = {"geometry": {"blob_elements": dgeo.blob_elements, "points": dgeo.ext_elements,
+                       "cell_elements": dm, "columns": dgeo.num_cells, "blobs": dn}}
+    drecs = records.setdefault("da", {})
+    dpolys = [da_erasure.blob_to_ints(b, dgeo) for b in blobs]
+    dbucket = da_gpu._bucket(dn)
+    d_coeffs = torch.from_numpy(da_gpu.pack_coefficients(dpolys, dgeo.blob_elements, dbucket)).to(dev)
+    d_points = da_gpu.domain_points(dgeo, dev)
+
+    def horner_bound(blob_lanes):
+        t_ops = (rs_extend.horner_products(dgeo.blob_elements, dgeo.ext_elements, blob_lanes)
+                 * IMAD_PER_FR_PRODUCT / INT_OPS_PER_S * 1e3)
+        t_bytes = rs_extend.horner_bytes(dgeo.blob_elements, dgeo.ext_elements, blob_lanes) \
+            / HBM_BYTES_PER_S * 1e3
+        return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+    rs_ptxas = {name: dict(rec, **ptxas["rs_extend"]["functions"].get(name, {}))
+                for name, rec in ptxas["rs_extend"]["kernels"].items()}
+    fr0 = rfield.FR_PRODUCTS
+    drecs["rs_extend"] = hold(
+        "rs_extend", lambda: rs_extend.eval_poly_batch(d_coeffs, d_points),
+        lambda: rs_extend.eval_poly_batch_plain(d_coeffs, d_points), nb(d_coeffs, d_points),
+        bound=horner_bound(dn),
+        extra={"fr_products": rs_extend.horner_products(dgeo.blob_elements, dgeo.ext_elements, dn),
+               "bound_bucket_ms": horner_bound(dbucket)[0], "lanes": [dgeo.ext_elements, dbucket],
+               "live_blobs": dn, "ptxas": rs_ptxas})
+    drecs["rs_extend"]["fr_products_plain"] = rfield.FR_PRODUCTS - fr0
+    assert len(rs_ptxas) == 1 and not ptxas["rs_extend"]["spill_store_bytes"] \
+        and not any(r["stack_bytes"] or r.get("stack_frame") for r in rs_ptxas.values()), \
+        f"rs_extend: stack frame or spills {rs_ptxas}"
+    d_out = rs_extend.eval_poly_batch(d_coeffs, d_points).cpu().numpy()
+    d_flat = rfield.words_to_ints(d_out[:, :dn])
+    d_evals = [d_flat[b::dn] for b in range(dn)]
+
+    def host_horner(poly, x):
+        acc = 0
+        for c in reversed(poly):
+            acc = (acc * x + c) % R_ORDER
+        return acc
+
+    drng = random.Random(13)
+    d_sample = drng.sample(range(dgeo.ext_elements), min(64, dgeo.ext_elements))
+    t0 = time.perf_counter()
+    sample_ok = all(d_evals[b][p] == host_horner(dpolys[b], dgeo.ext_points[p])
+                    for p in d_sample for b in range(dn))
+    host_sample_s = time.perf_counter() - t0
+    # the plain_out form on Montgomery coefficients gives the same plain values
+    mont = torch.from_numpy(rfield.mont_words(
+        [v for i in range(dgeo.blob_elements) for b in range(dbucket)
+         for v in [dpolys[b][i] if b < dn else 0]]).reshape(dgeo.blob_elements, dbucket, rfield.NW)).to(dev)
+    graph_eq = bool(torch.equal(rs_extend.rs_extend_graph(mont, d_points).cpu(), torch.from_numpy(d_out)))
+    da["kernel"] = {"sampled_points": len(d_sample), "sample_eq_host": sample_ok,
+                    "host_sample_s": host_sample_s, "padding_zero": not d_out[:, dn:].any(),
+                    "rs_extend_graph_eq": graph_eq}
+    assert sample_ok and da["kernel"]["padding_zero"] and graph_eq, da["kernel"]
+    # the edge batch: blob counts 1, 3 and 6 through extend_blobs, a zero
+    # blob and a blob of all r - 1 among them
+    zero_blob = bytes(dgeo.blob_bytes)
+    rm1_blob = (R_ORDER - 1).to_bytes(32, "big") * dgeo.blob_elements
+    rm1_poly = [R_ORDER - 1] * dgeo.blob_elements
+    edge = {}
+    for count, bl in ((1, [zero_blob]), (3, [zero_blob, rm1_blob, blobs[0]]),
+                      (6, [zero_blob, rm1_blob] + blobs[:4])):
+        cuda_build.reset_launches()
+        ev = da_erasure.extend_blobs(bl, dgeo, backend="gpu", device="cuda")
+        launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+        ok = ev[0] == [0] * dgeo.ext_elements and launches == {"rs_extend": 1}
+        if count > 1:
+            ok &= all(ev[1][p] == host_horner(rm1_poly, dgeo.ext_points[p]) for p in d_sample)
+            ok &= ev[2:] == d_evals[: count - 2]
+        edge[count] = {"ok": ok, "lanes": da_gpu.LAST_EXTEND_STATS["lanes"], "launches": launches}
+    da["edge"] = edge
+    assert all(e["ok"] for e in edge.values()), edge
+    # extend_blobs on the six: equal to the held kernel (so to the plain path)
+    walls, splits = [], []
+    for _ in range(3):
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        ev = da_erasure.extend_blobs(blobs, dgeo, backend="gpu", device="cuda")
+        walls.append(time.perf_counter() - t0)
+        splits.append(dict(da_gpu.LAST_EXTEND_STATS))
+        assert ev == d_evals, "da: extend_blobs differs from the kernel's held output"
+    extend_launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+    assert extend_launches == {"rs_extend": 1}, extend_launches
+    da["extend"] = {"p50_s": statistics.median(walls), "walls_s": walls, "splits": splits,
+                    "launches": extend_launches, "eq_kernel": True}
+    print(smi, flush=True)
+    emit("da_extend", **da["kernel"], edge=edge, **da["extend"])
+
+    # cells and proofs of the six blobs through "gpu"; cells 0, 1 and 127 of
+    # blob 0 against host Horner and their proofs against "ref"
+    d_cells, d_proofs, proof_splits = [], [], []
+    t0 = time.perf_counter()
+    for i, b in enumerate(blobs):
+        cuda_build.reset_launches()
+        cs_i, ps_i = da_cells.compute_cells_and_kzg_proofs(b, dgeo, setup=setup, backend="gpu",
+                                                          device="cuda")
+        if i == 0:
+            proof_launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+        d_cells.append(cs_i)
+        d_proofs.append(ps_i)
+        proof_splits.append(dict(da_cells.LAST_PROOF_STATS))
+    proofs_s = time.perf_counter() - t0
+    want_launches = {"rs_extend": 1} | {k: v * dgeo.num_cells for k, v in KZG_FIXED_LAUNCHES.items()}
+    assert proof_launches == want_launches, (proof_launches, want_launches)
+    t0 = time.perf_counter()
+    ref_ok = []
+    for k in (0, 1, dgeo.num_cells - 1):
+        want_cell = b"".join(host_horner(dpolys[0], dgeo.ext_points[i]).to_bytes(32, "big")
+                             for i in dgeo.cell_indices(k))
+        q, _ = da_cells._divide_by_vanishing(dpolys[0], dm, dgeo.vanishing_const(k))
+        ref_proof = point_serde.g1_compress(kzg_api._msm_backend(q, setup, "ref"))
+        ref_ok.append(d_cells[0][k] == want_cell and d_proofs[0][k] == ref_proof)
+    ref_s = time.perf_counter() - t0
+    da["proofs"] = {"blobs": dn, "cells_a_blob": dgeo.num_cells, "wall_s": proofs_s,
+                    "split_ms_sum": {k: sum(x[k] for x in proof_splits)
+                                     for k in ("extend_ms", "divide_ms", "msm_ms")},
+                    "launches_a_blob": proof_launches, "ref_cells": [0, 1, dgeo.num_cells - 1],
+                    "ref_byte_equal": ref_ok, "ref_s": ref_s}
+    assert all(ref_ok), da["proofs"]
+    print(smi, flush=True)
+    emit("da_proofs", **da["proofs"])
+
+    def cell_item(i, k):
+        return (comms[i], k, d_cells[i][k], d_proofs[i][k])
+
+    def cell_split():
+        return {k: v for k, v in da_gpu.LAST_CELL_STATS.items()}
+
+    # the custody sample: node-0's 4 columns x 6 blobs = 24 cells
+    columns = da_custody.custody_columns("node-0", dspec)
+    sample_items = [cell_item(i, k) for k in columns for i in range(dn)]
+    cuda_build.reset_launches()
+    ok = da_cells.verify_cell_proof_batch(sample_items, dgeo, backend="gpu", setup=setup, device="cuda")
+    verify_launches_da = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+    # a cell verify runs the KZG verify's kernels
+    assert ok is True and verify_launches_da == KZG_VERIFY_LAUNCHES, (ok, verify_launches_da)
+    walls, splits = [], []
+    for r in range(3):
+        t0 = time.perf_counter()
+        assert da_cells.verify_cell_proof_batch(sample_items, dgeo, backend="gpu", setup=setup,
+                                                seed=200 + r, device="cuda")
+        walls.append(time.perf_counter() - t0)
+        splits.append(cell_split())
+    da["custody"] = {"node": "node-0", "columns": list(columns), "cells": len(sample_items),
+                     "verdict": ok, "p50_s": statistics.median(walls), "walls_s": walls,
+                     "split_p50": {k: statistics.median(s[k] for s in splits) for k in splits[0]},
+                     "launches": verify_launches_da}
+    # tampered: a flipped cell byte, a wrong index, a swapped proof; "ref"
+    comm, k, cell, proof = sample_items[5]
+    flipped = sample_items[:5] + [(comm, k, cell[:70] + bytes([cell[70] ^ 1]) + cell[71:], proof)] \
+        + sample_items[6:]
+    wrong = [(sample_items[0][0], (sample_items[0][1] + 1) % dgeo.num_cells) + sample_items[0][2:]] \
+        + sample_items[1:]
+    swapped = [sample_items[0][:3] + (sample_items[1][3],), sample_items[1][:3] + (sample_items[0][3],)] \
+        + sample_items[2:]
+    da["tampered"] = {
+        name: da_cells.verify_cell_proof_batch(batch, dgeo, backend="gpu", setup=setup, device="cuda")
+        for name, batch in (("flipped_byte", flipped), ("wrong_index", wrong), ("swapped_proof", swapped))}
+    t0 = time.perf_counter()
+    da["custody"]["ref_verdict"] = da_cells.verify_cell_proof_batch(sample_items, dgeo, backend="ref",
+                                                                    setup=setup)
+    da["custody"]["ref_s"] = time.perf_counter() - t0
+    assert da["tampered"] == {"flipped_byte": False, "wrong_index": False, "swapped_proof": False} \
+        and da["custody"]["ref_verdict"] is True, (da["tampered"], da["custody"])
+    # the full block: 128 columns x 6 blobs
+    block_items = [cell_item(i, k) for k in range(dgeo.num_cells) for i in range(dn)]
+    t0 = time.perf_counter()
+    ok = da_cells.verify_cell_proof_batch(block_items, dgeo, backend="gpu", setup=setup, device="cuda")
+    da["block"] = {"cells": len(block_items), "verdict": ok, "wall_s": time.perf_counter() - t0,
+                   "split": cell_split()}
+    assert ok is True, "da: the full block's cells were rejected"
+    print(smi, flush=True)
+    emit("da_verify", custody=da["custody"], tampered=da["tampered"], block=da["block"])
+
+    # the kernels at the custody sample's shapes (24 cells: b = 32, 128
+    # lanes), each against its plain version
+    rs_, cs_, ws_, rzs_, acc_ = da_cells._fold_inputs(sample_items, dgeo, seed=5)
+    interp = kzg_api._g1_lincomb(setup.g1_powers[:dm], acc_)
+    hold_verify_path("da_custody", *da_gpu.cell_verify_lanes(rs_, cs_, ws_, rzs_, interp),
+                     setup.tau_g2_power(dm), drecs)
+
+    # reconstruction at 1,024 elements (cells of 64, 32 columns): the host's
+    # O(n^2) interpolation, ~16x longer at 4,096
+    rgeo = geometry(1_024, dm)
+    rblob = b"".join(drng.randrange(R_ORDER).to_bytes(32, "big") for _ in range(rgeo.blob_elements))
+    rcells = da_cells.compute_cells(rblob, rgeo, backend="gpu", device="cuda")
+    half = sorted(drng.sample(range(rgeo.num_cells), rgeo.num_cells // 2))
+    t0 = time.perf_counter()
+    rebuilt = da_erasure.reconstruct_blob({k: rcells[k] for k in half}, rgeo)
+    recon_s = time.perf_counter() - t0
+    try:
+        da_erasure.reconstruct_blob({k: rcells[k] for k in half[:-1]}, rgeo)
+        short = "accepted"
+    except DaError:
+        short = "DaError"
+    da["reconstruct"] = {"blob_elements": rgeo.blob_elements, "columns": rgeo.num_cells,
+                         "from_columns": half, "byte_equal": rebuilt == rblob, "seconds": recon_s,
+                         "one_short": short}
+    assert rebuilt == rblob and short == "DaError", da["reconstruct"]
+    emit("da_reconstruct", **da["reconstruct"])
+
+    # the bus: 128 column submissions of 6 cells from 8 threads, then 8
+    # columns with one corrupted cell in column 3
+    def bus_round(bus, cols):
+        out, errors = {}, []
+
+        def worker(tid):
+            try:
+                for k, col in cols[tid::8]:
+                    out[k] = bus.submit_cells(col, dgeo, setup=setup)
+            except Exception as e:  # a fault fails the phase below
+                errors.append(repr(e))
+
+        t0 = time.perf_counter()
+        ths = [threading.Thread(target=worker, args=(t,)) for t in range(8)]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join()
+        return out, errors, time.perf_counter() - t0
+
+    cbus = VerificationBus(backend="gpu", journal=Journal())
+    all_cols = [(k, [cell_item(i, k) for i in range(dn)]) for k in range(dgeo.num_cells)]
+    verdicts, errors, wall = bus_round(cbus, all_cols)
+    st = cbus.stats()
+    da["bus"] = {"submissions": len(all_cols), "threads": 8, "wall_s": wall, "errors": errors,
+                 "all_true": verdicts == {k: True for k in range(dgeo.num_cells)},
+                 "batches_formed": st["batches_formed"], "triggers": st["triggers"],
+                 "mean_live_per_batch": st["mean_live_per_batch"],
+                 "cell_batch_events": len(cbus.journal.query(kind="cell_batch"))}
+    bad_cols = [(k, col) for k, col in all_cols[:8]]
+    comm, k, cell, proof = bad_cols[3][1][2]
+    bad_cols[3] = (3, bad_cols[3][1][:2] + [(comm, k, bytes([cell[0] ^ 1]) + cell[1:], proof)]
+                   + bad_cols[3][1][3:])
+    bbus = VerificationBus(backend="gpu")
+    verdicts, errors2, wall2 = bus_round(bbus, bad_cols)
+    da["bus"]["corrupted"] = {"wall_s": wall2, "errors": errors2,
+                              "false_at": sorted(k for k, v in verdicts.items() if not v),
+                              "triggers": bbus.stats()["triggers"],
+                              "fallback_batches": bbus.stats()["fallback_batches"]}
+    assert not errors and da["bus"]["all_true"], da["bus"]
+    assert not errors2 and da["bus"]["corrupted"]["false_at"] == [3], da["bus"]["corrupted"]
+    print(smi, flush=True)
+    emit("da_bus", **da["bus"])
+
+    # the guard: an injected error on each plane raises before any launch;
+    # the next call is right
+    guard = {}
+    for plane, call in (
+        ("rs_extend", lambda: da_erasure.extend_blobs(blobs, dgeo, backend="gpu", device="cuda")),
+        ("da_cells", lambda: da_cells.verify_cell_proof_batch(sample_items, dgeo, backend="gpu",
+                                                              setup=setup, device="cuda")),
+    ):
+        GUARD.reset()
+        INJECTOR.arm("error", plane, rate=1.0, seed=1)
+        cuda_build.reset_launches()
+        try:
+            call()
+            raise AssertionError(f"da: an injected error on {plane} went unseen")
+        except DeviceErrorInjected as e:
+            guard[plane] = {"raised": type(e).__name__, "launches": sum(cuda_build.LAUNCHES.values())}
+        INJECTOR.reset()
+        out = call()
+        guard[plane]["next_right"] = out == d_evals if plane == "rs_extend" else out is True
+    GUARD.reset()
+    da["guard"] = guard
+    assert all(g["launches"] == 0 and g["next_right"] for g in guard.values()), guard
+    emit("da_guard", **guard)
+    da_launches = {"extend": extend_launches, "verify": verify_launches_da, "proofs": proof_launches}
+    records["da_phase"] = da
+
     # ------------------------------------------- 8. tensor-core probe
     probe = {form: mma_probe.probe(form, dev) for form in mma_probe.FORMS}
     probe_launches = {}
@@ -1816,6 +2149,11 @@ def main() -> int:
                         "XLA on the TPU, no Pallas kernel (_fold_kernel); ms at 16,384 depth-6 "
                         "lanes (ms_1024 at 1,024); launches from one batch_merkle_roots call at "
                         "16,384; hashlib_ms the host oracle on the same queries"),
+        "rs_extend": (csrc + "rs_extend.cu", "lighthouse_tpu/ops/rs_extend.py:36",
+                      "XLA on the TPU, no Pallas kernel (eval_poly_batch's fori_loop over "
+                      "rfield.mul_lazy and add); 6 live blobs in a bucket of 8 x 8,192 points x "
+                      "4,096 coefficients, bound_ms on the live lanes (bound_bucket_ms on the 8); "
+                      "launches from one extend_blobs call"),
     }
     # the kzg block's shapes (32 lanes at 64 windows, a fold of 32 -> 2, two
     # pairs) and the MSMs' (the fold of 64 x 4,096 lanes, the Horner ladder
@@ -1845,6 +2183,11 @@ def main() -> int:
         elif name == "subgroup_g2":
             rec, launches = records["subgroup"], ingest_launches[name]
             entry.update({k: rec[k] for k in ("lanes", "ms_1058", "ms_1024")})
+        elif name == "rs_extend":
+            rec, launches = records["da"][name], da_launches["extend"][name]
+            entry.update({k: rec[k] for k in ("lanes", "live_blobs", "fr_products", "bound_bucket_ms",
+                                              "ptxas")})
+            entry["launches_a_blob_proofs"] = da_launches["proofs"][name]
         elif name == "sha256_fold":
             rec, launches = records["merkle"][16_384], records["merkle"][16_384]["launches"]
             entry.update(lanes=16_384, depth=MERKLE_DEPTH, ms_1024=records["merkle"][1_024]["ms"],
@@ -1868,6 +2211,10 @@ def main() -> int:
                 "launches_variable_msm": kzg_launches["variable"].get(name, 0)}
             for extra in kzg_extra.get(name, ()):
                 entry["kzg"][extra] = pick(records["kzg"][extra])
+        if name in records["da"] and name != "rs_extend":  # at the cell verify's shapes
+            entry["da"] = pick(records["da"][name]) | {
+                "launches": da_launches["verify"].get(name, 0),
+                "launches_a_blob_proofs": da_launches["proofs"].get(name, 0)}
         kernels.append(entry)
     with open(os.path.join(OUT, "chip_smoke_records.json"), "w") as f:
         json.dump({"records": records, "kernels": kernels, "smi": smi}, f, indent=1)

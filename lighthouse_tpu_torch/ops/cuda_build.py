@@ -3,7 +3,8 @@
 Each source under `lighthouse_tpu_torch/csrc/` (one per kernel family; K1,
 K2, K3, the helpers, the subgroup check and the Fp product's timing include
 the register arithmetic of `fp_reg.cuh`, K2, K3 and the product through
-`lanes.cuh`; the SHA-256 fold of the Merkle plane includes nothing)
+`lanes.cuh`; the SHA-256 fold of the Merkle plane and the Fr Horner
+kernel of the Reed-Solomon extension include nothing)
 compiles at first use into its own shared library with a plain C
 interface under `lighthouse_tpu_torch/build/`:
 
@@ -72,6 +73,7 @@ SOURCES = {
     },
     "subgroup": {"lh_g2_subgroup": [_P, _P, _P, _I, _P, _P], "lh_g2_subgroup_blocks_per_sm": [_P, _P]},
     "sha256_fold": {"lh_sha256_fold": [_P, _P, _P, _I, _I, _P, _P]},
+    "rs_extend": {"lh_rs_extend": [_P, _P, _I, _I, _I, _I, _P, _P]},
 }
 
 # kernel name -> launches through its wrapper
@@ -95,6 +97,7 @@ LAUNCHES = {
     "mma_probe_bf16": 0,
     "subgroup_g2": 0,
     "sha256_fold": 0,
+    "rs_extend": 0,
 }
 
 # source -> {"seconds": build time, "ptxas": ptxas -v report}

@@ -1,12 +1,13 @@
 """Cross-subsystem verification bus: deadline-aware batch coalescing.
 
-The port of `lighthouse_tpu/verification_bus/bus.py`, with its `bls` and
-`slot_program` kinds. Every BLS signature goes through ONE batch boundary
-(`verify_signature_sets`), but the consumers (gossip singles, sync
-segments, sidecar headers, op-pool packing, the slasher) would each call
-the card on their own, so a small batch pays the card's whole fixed
-dispatch cost alone (FIXED_DEVICE_COST_MS, 11.4 ms on an H100). Batch
-amortization across consumers is the lever, and this module is it.
+The port of `lighthouse_tpu/verification_bus/bus.py`, with its `bls`,
+`slot_program` and `da_cells` kinds. Every BLS signature goes through ONE
+batch boundary (`verify_signature_sets`), but the consumers (gossip
+singles, sync segments, sidecar headers, op-pool packing, the slasher)
+would each call the card on their own, so a small batch pays the card's
+whole fixed dispatch cost alone (FIXED_DEVICE_COST_MS, 11.4 ms on an
+H100). Batch amortization across consumers is the lever, and this module
+is it.
 
 Consumers submit `SignatureSet` batches tagged with their consumer label
 and a deadline (anything with `.remaining()`, or a float budget; without
@@ -50,9 +51,15 @@ sends a settle alone through that boundary. A flush groups its
 submissions by (backend, kind), so a slot program and a plain batch never
 share a dispatch.
 
+`submit_cells` sends DA cell-proof items (commitment, cell_index, cell,
+proof) through the same queue, deadline and mixed-fail contract: pending
+cell submissions coalesce into ONE folded pairing batch
+(`da.cells.verify_cell_proof_batch`, plane "da_cells"), journaled as one
+`cell_batch` event a submission. Cell batches never share a dispatch with
+signature sets or slot programs: the flush groups by (backend, kind).
+
 `device` is where the "gpu" backend runs: the card by default, "cpu" for
-the plain versions (the tests). The reference's DA-cell kind
-(`submit_cells`) comes with the port's data-availability slice.
+the plain versions (the tests).
 """
 
 import threading
@@ -160,10 +167,12 @@ class _Submission:
         # submission into a dispatch group — the slot-budget recorder's
         # queue-wait/dispatch split on the submitter side
         self.dispatch_t0 = None
-        # the shared-dispatch kind: "bls" (a signature batch) or
-        # "slot_program" (the fold and a staged settle in one program)
+        # the shared-dispatch kind: "bls" (a signature batch),
+        # "slot_program" (the fold and a staged settle in one program) or
+        # "da_cells" (cell-proof items; `sets` holds them)
         self.kind = kind
-        # kind-specific context (slot_program: {"work": the settle})
+        # kind-specific context (slot_program: {"work": the settle};
+        # da_cells: {"geometry", "setup"})
         self.extra = extra
 
 
@@ -304,6 +313,45 @@ class VerificationBus:
             budget_s,
             kind="slot_program",
             extra={"work": work},
+        )
+        return self._submit_and_wait(sub)
+
+    def submit_cells(
+        self,
+        items,
+        geometry,
+        consumer: str = "da_cells",
+        deadline=None,
+        journal=None,
+        slot=None,
+        journal_attrs: dict | None = None,
+        backend: str | None = None,
+        setup=None,
+    ) -> bool:
+        """Verify DA cell-proof items (commitment, cell_index, cell, proof)
+        as one unit, coalesced with other pending CELL submissions into one
+        folded pairing batch (`da.cells.verify_cell_proof_batch`). The
+        queue, deadline and mixed-fail contract of `submit`; cell batches
+        never merge with signature batches -- the flush groups by
+        (backend, kind). Empty submissions verify vacuously, like
+        `submit`."""
+        items = list(items)
+        if not items:
+            attribution.normalize(consumer)
+            return True
+        consumer = attribution.normalize(consumer)
+        _SUBMITTED.labels(consumer).inc()
+        budget_s = self._budget_for(consumer, deadline)
+        sub = _Submission(
+            items,
+            consumer,
+            journal if journal is not None else self.journal,
+            slot,
+            journal_attrs,
+            backend or self.backend,
+            budget_s,
+            kind="da_cells",
+            extra={"geometry": geometry, "setup": setup},
         )
         return self._submit_and_wait(sub)
 
@@ -494,6 +542,8 @@ class VerificationBus:
     def _shared_verify(self, subs, backend):
         """Kind dispatch: a group is homogeneous by construction (the
         flush groups by (backend, kind))."""
+        if subs[0].kind == "da_cells":
+            return self._cells_shared_verify(subs, backend)
         if subs[0].kind == "slot_program":
             return self._program_shared_verify(subs, backend)
         return self._guarded_shared_verify(subs, backend)
@@ -528,6 +578,26 @@ class VerificationBus:
             ),
             device=self.device,
         )
+
+    def _cells_shared_verify(self, subs, backend):
+        """The shared DA cell-proof dispatch: every submission's items in
+        ONE folded pairing batch. `da.cells.verify_cell_proof_batch` owns
+        the guarded dispatch (plane "da_cells", no failover), the
+        slot-budget mark and the attribution, so the bus adds only
+        queueing and coalescing. Returns (ok, None): a cell batch carries
+        no lanes/waste record."""
+        from lighthouse_tpu_torch.da import cells as da_cells
+
+        items = [it for s in subs for it in s.sets]
+        geo = subs[0].extra["geometry"]
+        setup = next(
+            (s.extra["setup"] for s in subs if s.extra["setup"] is not None), None
+        )
+        ok = da_cells.verify_cell_proof_batch(
+            items, geo, backend=backend, setup=setup, seed=self.seed,
+            consumer="da_cells", device=self.device,
+        )
+        return bool(ok), None
 
     def _guarded_shared_verify(self, subs, backend):
         """The shared dispatch, routed through the device-plane guard
@@ -668,10 +738,11 @@ class VerificationBus:
         exc=None,
         mixed_retry: bool = False,
     ):
-        """One `signature_batch` event per contributing submission,
-        sharing the batch id and economics — the journal side of the
-        attribution equality (the registry counted each contributor's
-        sets in verify_signature_sets_shared)."""
+        """One `signature_batch` event per contributing submission (a
+        `cell_batch` one for a cell submission), sharing the batch id and
+        economics — the journal side of the attribution equality (the
+        registry counted each contributor's sets in
+        verify_signature_sets_shared)."""
         now = time.monotonic()
         for s, ok_i in zip(subs, verdicts):
             journal = s.journal
@@ -710,7 +781,7 @@ class VerificationBus:
                 else ("ok" if ok_i else "failed")
             )
             journal.emit(
-                "signature_batch",
+                "cell_batch" if s.kind == "da_cells" else "signature_batch",
                 slot=s.slot,
                 outcome=outcome,
                 **attrs,

@@ -22,7 +22,10 @@ from lighthouse_tpu_torch import testing as T
 from lighthouse_tpu_torch.bls import api, gpu_backend
 from lighthouse_tpu_torch.bls.device_pubkey_table import DevicePubkeyTable
 from lighthouse_tpu_torch.ops import cuda_build, curve_kernels, field as fd
+from lighthouse_tpu_torch.da import cells as da_cells, erasure
+from lighthouse_tpu_torch.da.domain import geometry
 from lighthouse_tpu_torch.ops import final_exp, ladder, merkle_proof, miller, mma_probe, subgroup
+from lighthouse_tpu_torch.ops import rfield, rs_extend
 from lighthouse_tpu_torch.ops.slot_program import SlotProgram
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -80,6 +83,7 @@ def test_every_kernel_has_a_source_and_a_counter():
         "lane_sum_g1", "lane_sum_g2", "to_affine_g1", "to_affine_g2",
         "jacobian_to_affine_g1", "jacobian_to_affine_g2", "ladder_g1_chain", "ladder_g2_chain", "ladder_g1_w2", "ladder_g2_w2",
         "pair_final_exp", "mma_probe_i8", "mma_probe_bf16", "subgroup_g2", "sha256_fold",
+        "rs_extend",
     }
 
 
@@ -129,6 +133,10 @@ WRAPPERS = {
     "sha256_fold": lambda: merkle_proof.fold_branches(
         torch.zeros((4, 8), dtype=torch.int32), torch.zeros((4, 2, 8), dtype=torch.int32),
         torch.zeros((4, 2), dtype=torch.int32), require_kernel=True
+    ),
+    "rs_extend": lambda: rs_extend.eval_poly_batch(
+        torch.zeros((4, 2, 8), dtype=torch.int32), torch.zeros((3, 8), dtype=torch.int32),
+        require_kernel=True
     ),
 }
 
@@ -186,9 +194,13 @@ def test_cuda_device_without_gpu_raises():
             [(bytes(32), [bytes(32)], 2)], consumer="bench", device="cuda"),
         lambda sets: SlotProgram(seed=0).add_signatures(sets, "oppool").add_merkle(
             [(bytes(32), [bytes(32)], 2)], [bytes(32)]).run(backend="gpu", device="cuda"),
+        lambda sets: erasure.extend_blobs([bytes(256)], geometry(8, 4), device="cuda"),
+        lambda sets: da_cells.verify_cell_proof_batch(
+            [(bytes([0xC0]) + bytes(47), 0, bytes(128), bytes([0xC0]) + bytes(47))],
+            geometry(8, 4), device="cuda"),
     ],
     ids=["check_signature_subgroups", "verify_signature_set_batches", "batch_merkle_roots",
-         "SlotProgram.run"],
+         "SlotProgram.run", "extend_blobs", "verify_cell_proof_batch"],
 )
 def test_new_entry_points_without_gpu_raise(call, monkeypatch):
     """Each raises before any plain version runs: no fold, no plain
@@ -197,10 +209,10 @@ def test_new_entry_points_without_gpu_raise(call, monkeypatch):
     sets = T.flat_sets(T.validator_pubkeys(2), 1, max_keys=1, seed=0)
     ran = []
     monkeypatch.setattr(merkle_proof, "fold_branches_plain", lambda *a: ran.append("fold"))
-    products = fd.FP_PRODUCTS
+    products = fd.FP_PRODUCTS, rfield.FR_PRODUCTS
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call(sets)
-    assert ran == [] and fd.FP_PRODUCTS == products
+    assert ran == [] and (fd.FP_PRODUCTS, rfield.FR_PRODUCTS) == products
 
 
 def test_cuda_table_without_gpu_raises():

@@ -4,7 +4,8 @@ exponentiation, the lane fold plus final exponentiation, the windowed RLC
 ladder, the Pallas batch verify in interpret mode, the Pallas chain and
 2-bit ladder kernels in interpret mode, the per-set verification graph
 (values after the final exponentiation, and verdicts), and the G2 subgroup
-check over all of r (verdicts).
+check over all of r (verdicts), the KZG batch verify and MSM graphs, and the
+DA cell verify (verdicts).
 
 Marked slow: each JAX reference is a whole jitted graph whose cold compile
 takes minutes on a CPU (the Miller loop alone about a minute, the final
@@ -300,3 +301,35 @@ def test_kzg_msm_graphs_match_jax():
     pts[3] = None
     want = rc.G1.to_affine(tpu_backend.g1_msm_tpu(pts, scalars))
     assert PG1.to_affine(kzg_gpu.g1_msm_gpu(pts, scalars, device="cpu")) == want
+
+
+# ------------------------------------------------------------------ DA
+
+
+def test_da_cell_verify_matches_jax_graph():
+    """The reference's `da.cells.verify_cell_proof_batch(backend="tpu")`
+    (the jitted KZG verify graph over its cell lanes) and the port's "gpu"
+    backend on the plain versions give the same verdict on two cells of
+    two blobs: honest, then with one cell byte flipped."""
+    from lighthouse_tpu import kzg as rkzg
+    from lighthouse_tpu.crypto.constants import R as ORDER
+    from lighthouse_tpu.da import cells as rcells
+    from lighthouse_tpu.da.domain import geometry as rgeometry
+    from lighthouse_tpu_torch.da import cells as pcells
+    from lighthouse_tpu_torch.da.domain import geometry
+
+    rng = np.random.default_rng(44)
+    blobs = [b"".join((int.from_bytes(rng.bytes(32), "big") % ORDER).to_bytes(32, "big")
+                      for _ in range(8)) for _ in range(2)]
+    rgeo = rgeometry(8, 4)
+    items = []
+    for blob, k in zip(blobs, (1, 2)):
+        cells, proofs = rcells.compute_cells_and_kzg_proofs(blob, rgeo, backend="ref")
+        items.append((rkzg.blob_to_kzg_commitment(blob, backend="ref"), k, cells[k], proofs[k]))
+    comm, k, cell, proof = items[1]
+    bad = items[:1] + [(comm, k, cell[:9] + bytes([cell[9] ^ 1]) + cell[10:], proof)]
+    for batch, want in ((items, True), (bad, False)):
+        got_jax = rcells.verify_cell_proof_batch(batch, rgeo, backend="tpu", seed=6)
+        got = pcells.verify_cell_proof_batch(batch, geometry(8, 4), backend="gpu", seed=6,
+                                             device="cpu")
+        assert bool(got_jax) is got is want

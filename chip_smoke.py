@@ -180,6 +180,31 @@ non-zero without its result line:
     submissions of 6 cells from 8 threads, all True, then 8 with one
     corrupted column, which alone is False; an injected error on rs_extend
     and on da_cells raising before any launch, the next call right;
+ 7i. epoch: the altair rewards pass (csrc/epoch_rewards.cu) exactly
+    against its plain version at 1,048,576 seeded validators, leak off and
+    on, and on an edge batch of 4,608 lanes (every flag and mask
+    combination, zero effective balance, scores at the int64 envelope's
+    edge, balances driven below zero), its device time beside its byte
+    bound and ptxas's report; process_epoch(device="cuda") on a
+    mainnet-spec altair state of 1,048,576 validators
+    (testing.epoch_state, seeded; an epoch that rotates no sync committee)
+    with its wall and its split (extraction, upload, kernel, read-back,
+    write-back, the other passes), one launch; the same state rebuilt and
+    run on "cpu", balances, scores and the registry equal; process_slots
+    across one boundary at 16,384 validators on both, state roots equal;
+ 7j. slasher: the min/max-target update (csrc/slasher_update.cu) exactly
+    against its plain version on a 65,536-row slice at H = 4,096 with
+    32,768 lanes over a seeded prior (several lanes a row, duplicate
+    pairs, s = 0 and H - 1, invalid lanes with garbage), and on 4,096-row
+    slices at H = 37 and 4,095 (the element-wise merge); then in place at
+    1,048,576 x 4,096 (32 GiB) over an honest history (testing.honest_prior):
+    one slot's batch of 32,768 attesters and one epoch's of every validator
+    (testing.slasher_batches) flag exactly the 64 planted votes, the slot's
+    touched rows equal the plain version on those rows gathered, every
+    untouched row's checksum is unchanged, every row after both equals the
+    plain version run a chunk of rows at a time; the kernel's ms at both
+    batches beside their byte bounds (the columns each touched row needs;
+    whole rows as bound_rows_ms), the glue's and the peak memory;
  8. the tensor-core probe (lighthouse_tpu_torch.ops.mma_probe), int8 and
     bf16, exact against the probe's numpy check and the plain version,
     kernel and library call timed the same way (and each once more in one
@@ -187,7 +212,9 @@ non-zero without its result line:
     a few-microsecond call); its launches are those of one `contract` call;
  9. the kernels line (the kernels of the kzg path carry a "kzg" record at
     its shapes, with its launches, and a "da" record at the cell verify's;
-    every kernel its launches in phase 7g's program run), then {"ok": true,
+    every kernel its launches in phase 7g's program run; epoch_rewards its
+    launches in 7i's process_epoch, slasher_update in 7j's two full-width
+    batches), then {"ok": true,
     "device": {...}} as the last line.
 
 The kernel records also go to chiprun_out/chip_smoke_records.json.
@@ -195,7 +222,9 @@ The kernel records also go to chiprun_out/chip_smoke_records.json.
 Without a CUDA device the script exits 2 and prints no result.
 """
 
+import itertools
 import json
+import math
 import os
 import random
 import statistics
@@ -254,6 +283,22 @@ ORDER13 = (
 )
 
 N_VALIDATORS = 32_768
+# the epoch plane: a mainnet registry's size, an epoch whose successor
+# rotates no sync committee and appends no historical root, and one
+# boundary through process_slots
+EPOCH_V = 1_048_576
+EPOCH_AT = 1_000
+BOUNDARY_V = 16_384
+# the rewards pass's integer operations a validator (six 64-bit floor
+# divisions, eight multiplications, the selects and sums), one each
+EPOCH_INT_OPS = 64
+# the slasher plane: ~1 M validators x SlasherConfig's history_length
+# (lighthouse_tpu/slasher/slasher.py:42), one slot's attesters, the planted
+# surround and surrounded votes
+SLASHER_V = 1_048_576
+SLASHER_H = 4_096
+SLOT_ATTESTERS = 32_768
+PLANTED = 64
 N_COMMITTEES = 64
 COMMITTEE = 480
 N_FLAT = 1_024
@@ -315,6 +360,11 @@ def main() -> int:
     from lighthouse_tpu_torch.da import erasure as da_erasure, gpu_backend as da_gpu
     from lighthouse_tpu_torch.da.domain import DaError, geometry, geometry_for_spec
     from lighthouse_tpu_torch.ops import rfield, rs_extend
+    from lighthouse_tpu_torch.slasher import device as sd
+    from lighthouse_tpu_torch.state_processing import epoch_kernel as ek
+    from lighthouse_tpu_torch.state_processing.per_epoch import process_epoch
+    from lighthouse_tpu_torch.state_processing.per_slot import process_slots
+    from lighthouse_tpu_torch.types.spec import mainnet_spec
 
     os.makedirs(OUT, exist_ok=True)
     dev = torch.device("cuda")
@@ -2095,6 +2145,322 @@ def main() -> int:
     da_launches = {"extend": extend_launches, "verify": verify_launches_da, "proofs": proof_launches}
     records["da_phase"] = da
 
+    # ---------------------------------------------- 7i. the epoch plane (epoch)
+    # the altair rewards pass (csrc/epoch_rewards.cu) exactly against its
+    # plain version at V = 1,048,576 on seeded arrays, leak off and on, and
+    # on an edge batch; process_epoch on a mainnet-spec altair state of
+    # 1,048,576 validators (testing.epoch_state) on the card, then on the
+    # CPU from the same seed, balances and scores equal; process_slots
+    # across one boundary at 16,384 validators on both, state roots equal
+    t_phase = time.perf_counter()
+    ep = {}
+    espec = mainnet_spec(ALTAIR_FORK_EPOCH=0)
+    einc = espec.EFFECTIVE_BALANCE_INCREMENT
+    equot = espec.INACTIVITY_SCORE_BIAS * espec.inactivity_penalty_quotient_for("altair")
+
+    def epoch_params(arrs, leak):
+        total = max(einc, int(arrs[0][arrs[4]].sum()))
+        return (einc * espec.BASE_REWARD_FACTOR // math.isqrt(total), einc, total // einc, int(leak),
+                espec.INACTIVITY_SCORE_BIAS, espec.INACTIVITY_SCORE_RECOVERY_RATE, equot)
+
+    def epoch_bound(n):
+        t_bytes = ek.rewards_bytes(n) / HBM_BYTES_PER_S * 1e3
+        t_ops = n * EPOCH_INT_OPS / INT_OPS_PER_S * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    erng = np.random.default_rng(14)
+    n = EPOCH_V
+    eff = np.where(erng.random(n) < 0.97, 32, erng.integers(0, 33, n)) * einc
+    active = erng.random(n) < 0.97
+    slashed = erng.random(n) < 0.01
+    e_arrs = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        eff, np.where(erng.random(n) < 0.9, 7, erng.integers(0, 8, n)).astype(np.uint8),
+        np.where(erng.random(n) < 0.1, erng.integers(0, 100, n), 0),
+        np.maximum(0, eff + erng.integers(-einc, einc, n)), active, slashed,
+        active | (slashed & (erng.random(n) < 0.5)))]
+    e_in = nb(*e_arrs)
+    ek.rewards_plain(*e_arrs, epoch_params(e_arrs, False))  # the plain ops' first use, untimed
+    torch.cuda.synchronize()
+    erecs = {}
+    for leak in (False, True):
+        prm = epoch_params(e_arrs, leak)
+        erecs[leak] = hold(f"epoch_rewards{'_leak' if leak else ''}",
+                           lambda: ek.rewards(*e_arrs, prm), lambda: ek.rewards_plain(*e_arrs, prm),
+                           e_in, bound=epoch_bound(n), extra={"validators": n, "leak": leak})
+    # the edge batch: every flag byte and mask combination, zero / one
+    # increment / 17 / 32 ETH effective, scores 0, 1, 15-17 and at the
+    # envelope's edge (eff * (score + bias) just under 2**62), balances 0, 1
+    # and 32 ETH (driven below zero)
+    edge_score = (2**62 - 1) // (32 * einc) - espec.INACTIVITY_SCORE_BIAS
+    combos = np.array(list(itertools.product(
+        range(8), range(8), (0, einc, 17 * einc, 32 * einc), (0, 1, 15, 16, 17, edge_score),
+        (0, 1, 32 * einc))), dtype=np.int64)
+    edge = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        combos[:, 2], combos[:, 0].astype(np.uint8), combos[:, 3], combos[:, 4], (combos[:, 1] & 1) > 0,
+        (combos[:, 1] & 2) > 0, (combos[:, 1] & 4) > 0)]
+    edge_ok = {}
+    for leak in (False, True):
+        prm = (357, einc, 1_000_000, int(leak), espec.INACTIVITY_SCORE_BIAS,
+               espec.INACTIVITY_SCORE_RECOVERY_RATE, equot)
+        got, want = ek.rewards(*edge, prm), ek.rewards_plain(*edge, prm)
+        edge_ok[leak] = all(torch.equal(a, b) for a, b in zip(got, want))
+    ep["edge"] = {"lanes": len(combos), "exact_no_leak": edge_ok[False], "exact_leak": edge_ok[True],
+                  "clamped_to_zero": int((edge[3] > 0).sum())}
+    assert all(edge_ok.values()), ep["edge"]
+    ep_ptxas = {name: dict(rec, **ptxas["epoch_rewards"]["functions"].get(name, {}))
+                for name, rec in ptxas["epoch_rewards"]["kernels"].items()}
+    ep["kernel"] = {"ptxas": ep_ptxas, "leak_ms": erecs[True]["ms"],
+                    "leak_plain_ms": erecs[True]["plain_ms"]}
+    print(smi, flush=True)
+    emit("epoch_kernel", **ep["kernel"], edge=ep["edge"])
+    records["epoch_rewards"] = dict(erecs[False], ptxas=ep_ptxas, leak_ms=erecs[True]["ms"])
+    del e_arrs, edge
+
+    # the path: process_epoch at 1,048,576 validators on the card, then the
+    # same state on the CPU (the plain version; the spec's Python passes
+    # cannot run at this size)
+    t0 = time.perf_counter()
+    est = T.epoch_state(espec, EPOCH_V, EPOCH_AT, seed=21)
+    build_s = time.perf_counter() - t0
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    process_epoch(est, espec, device="cuda")
+    wall = time.perf_counter() - t0
+    epoch_launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+    split = dict(ek.LAST_EPOCH_STATS)
+    est_cpu = T.epoch_state(espec, EPOCH_V, EPOCH_AT, seed=21)
+    t0 = time.perf_counter()
+    process_epoch(est_cpu, espec, device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    cpu_split = dict(ek.LAST_EPOCH_STATS)
+    same = (list(est.balances) == list(est_cpu.balances)
+            and list(est.inactivity_scores) == list(est_cpu.inactivity_scores))
+    registry_same = all(
+        (a.effective_balance, a.exit_epoch, a.activation_epoch, a.activation_eligibility_epoch)
+        == (b.effective_balance, b.exit_epoch, b.activation_epoch, b.activation_eligibility_epoch)
+        for a, b in zip(est.validators, est_cpu.validators))
+    rewards_s = sum(split[k] for k in ("extract_s", "upload_s", "kernel_s", "readback_s",
+                                       "writeback_s"))
+    ep["path"] = {"validators": EPOCH_V, "epoch": EPOCH_AT, "build_s": build_s, "wall_s": wall,
+                  "split": split, "other_passes_s": wall - rewards_s, "cpu_wall_s": cpu_wall,
+                  "cpu_split": cpu_split, "balances_and_scores_equal": same,
+                  "registry_equal": registry_same, "launches": epoch_launches}
+    print(smi, flush=True)
+    emit("epoch", **ep["path"])
+    assert same and registry_same, "epoch: the card and the CPU disagree"
+    assert epoch_launches == {"epoch_rewards": 1}, epoch_launches
+    del est, est_cpu
+
+    # one boundary through process_slots at 16,384 validators
+    roots, walls_b = {}, {}
+    for where in ("cuda", "cpu"):
+        bst = T.epoch_state(espec, BOUNDARY_V, EPOCH_AT, seed=22)
+        bst.slot -= 1
+        t0 = time.perf_counter()
+        bst = process_slots(bst, (EPOCH_AT + 1) * espec.SLOTS_PER_EPOCH + 1, espec, device=where)
+        walls_b[where] = time.perf_counter() - t0
+        roots[where] = type(bst).hash_tree_root(bst).hex()
+    ep["boundary"] = {"validators": BOUNDARY_V, "slots": 3, "roots_equal": roots["cuda"] == roots["cpu"],
+                      "root": roots["cuda"], "wall_s": walls_b, "phase_s": time.perf_counter() - t_phase}
+    emit("epoch_boundary", **ep["boundary"])
+    assert ep["boundary"]["roots_equal"], roots
+    records["epoch_phase"] = ep
+
+    # ------------------------------------------ 7j. the slasher plane (slasher)
+    # the min/max-target update (csrc/slasher_update.cu) exactly against its
+    # plain version on a 65,536-row slice at H = 4,096 (SlasherConfig's
+    # history_length) with N = 32,768 lanes over a seeded prior, and at
+    # H = 37 and 4,095 on 4,096 rows; then in place at 1,048,576 x 4,096
+    # (32 GiB) over an honest history: one slot's batch and one epoch's,
+    # exactly the 64 planted verdicts, the touched rows against the plain
+    # version on those rows, the untouched rows' checksums unchanged
+    t_phase = time.perf_counter()
+    sl = {}
+    H = SLASHER_H
+    srng = np.random.default_rng(15)
+
+    def lanes_on(*arrs):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrs]
+
+    def slasher_bound(lanes, h=H):
+        # the columns the lanes' rows need (max from a row's smallest
+        # source up, min to its largest), read and written once
+        return sd.update_bytes(lanes[0], lanes[1], lanes[3], h) / HBM_BYTES_PER_S * 1e3
+
+    def slasher_rows_bound(rows, n_lanes, h=H):
+        return sd.row_bytes(rows, h, n_lanes) / HBM_BYTES_PER_S * 1e3
+
+    def slice_run(SV, h, SN, rows_hot):
+        """A seeded prior over SV x h, then a batch of SN lanes: several
+        lanes on a row (a quarter of them on `rows_hot` rows), duplicate
+        (v, s) pairs, s = 0 and s = h - 1, 10 % invalid lanes with garbage
+        v, s and t; the kernel against the plain version on clones."""
+        smn = torch.full((SV, h), sd.NO_TARGET_MIN, dtype=torch.int32, device=dev)
+        smx = torch.full((SV, h), sd.NO_TARGET_MAX, dtype=torch.int32, device=dev)
+        ps = srng.integers(0, h - 1, SV)
+        prior = lanes_on(srng.integers(0, SV, SV).astype(np.int32), ps.astype(np.int32),
+                         np.minimum(ps + srng.integers(1, 64, SV), h - 1).astype(np.int32),
+                         np.ones(SV, bool))
+        sd.batch_update_plain(smn, smx, *prior)
+        bv = srng.integers(0, SV, SN)
+        bv[: SN // 4] = srng.integers(0, rows_hot, SN // 4)
+        bs = srng.integers(0, h, SN)
+        bt = np.minimum(bs + srng.integers(0, 512, SN), h - 1)
+        edge = SN // 64
+        bs[SN // 4: SN // 4 + edge], bs[SN // 4 + edge: SN // 4 + 2 * edge] = 0, h - 1
+        bt[SN // 4 + edge: SN // 4 + 2 * edge] = h - 1
+        bv[SN // 2: SN // 2 + 64], bs[SN // 2: SN // 2 + 64] = bv[0], bs[0]
+        bvalid = srng.random(SN) >= 0.1
+        bad = ~bvalid
+        for a in (bv, bs, bt):
+            a[bad] = srng.integers(-2**31, 2**31 - 1, int(bad.sum()))
+        batch = lanes_on(bv.astype(np.int32), bs.astype(np.int32), bt.astype(np.int32), bvalid)
+        kmn, kmx = smn.clone(), smx.clone()
+        got = sd.batch_update(kmn, kmx, *batch)
+        torch.cuda.synchronize()
+        tp0 = time.perf_counter()
+        want = sd.batch_update_plain(smn, smx, *batch)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - tp0) * 1e3
+        err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in zip(got, want))
+        rows = int(torch.unique(batch[0][batch[3]]).numel())
+        rec = {"rows": SV, "H": h, "lanes": SN, "touched_rows": rows, "valid_lanes": int(bvalid.sum()),
+               "max_abs_err": err, "plain_ms": plain_ms, "bound_ms": slasher_bound(batch, h),
+               "bound_rows_ms": slasher_rows_bound(rows, SN, h),
+               "surrounded": int(got[2].sum()), "surrounds": int(got[3].sum())}
+        return rec, (kmn, kmx, sd.group_lanes(*batch[:2], batch[3], SV, h), batch)
+
+    SV, SN = 65_536, 32_768
+    sl["slice"], (kmn, kmx, groups, batch) = slice_run(SV, H, SN, 1_024)
+    so, ss = (torch.zeros(SN, dtype=torch.bool, device=dev) for _ in range(2))
+    sl["slice"]["ms"] = cuda_build.time_ms(
+        lambda: sd.launch_rows(kmn, kmx, groups, batch[1], batch[2], so, ss))
+    slice_plain_ms, slice_err = sl["slice"]["plain_ms"], sl["slice"]["max_abs_err"]
+    emit("slasher_slice", **sl["slice"])
+    assert slice_err == 0, "slasher: kernel and plain version disagree on the slice"
+    del kmn, kmx, groups, batch
+    # history lengths that are not a multiple of 4 take the kernel's
+    # element-wise merge (SlasherConfig's history_length is configurable)
+    sl["odd_h"] = [slice_run(4_096, h, 8_192, 64)[0] for h in (37, 4_095)]
+    emit("slasher_odd_h", slices=sl["odd_h"])
+    assert all(r["max_abs_err"] == 0 for r in sl["odd_h"]), "slasher: odd H disagrees"
+    torch.cuda.empty_cache()
+
+    # full width, in place
+    torch.cuda.reset_peak_memory_stats()
+    min_row, max_row = (torch.from_numpy(r).to(dev) for r in T.honest_prior(H))
+    fmn = torch.empty((SLASHER_V, H), dtype=torch.int32, device=dev)
+    fmx = torch.empty((SLASHER_V, H), dtype=torch.int32, device=dev)
+    fmn.copy_(min_row.expand(SLASHER_V, H))
+    fmx.copy_(max_row.expand(SLASHER_V, H))
+    slot_b, slot_planted, epoch_b, epoch_planted = T.slasher_batches(
+        SLASHER_V, H, SLOT_ATTESTERS, PLANTED // 2, seed=16)
+    slot_l = lanes_on(*slot_b, np.ones(len(slot_b[0]), bool))
+    epoch_l = lanes_on(*epoch_b, np.ones(SLASHER_V, bool))
+    weights = torch.arange(1, H + 1, dtype=torch.int64, device=dev)
+
+    def row_sums():
+        out = torch.empty((2, SLASHER_V), dtype=torch.int64, device=dev)
+        for c0 in range(0, SLASHER_V, 32_768):
+            for k, arr in enumerate((fmn, fmx)):
+                out[k, c0:c0 + 32_768] = (arr[c0:c0 + 32_768].to(torch.int64) * weights).sum(1)
+        return out
+
+    sums_before = row_sums()
+    rows = torch.unique(slot_l[0])
+    pre = fmn[rows].clone(), fmx[rows].clone()
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    _, _, s_sed, s_sds = sd.batch_update(fmn, fmx, *slot_l)
+    torch.cuda.synchronize()
+    slot_wall = time.perf_counter() - t0
+    slot_verdicts = (s_sed.cpu().numpy(), s_sds.cpu().numpy())
+    # the touched rows against the plain version on those rows, gathered
+    held = sd.batch_update_plain(*pre, torch.searchsorted(rows, slot_l[0]).to(torch.int32),
+                                 *slot_l[1:])
+    touched_ok = (torch.equal(held[0], fmn[rows]) and torch.equal(held[1], fmx[rows])
+                  and torch.equal(held[2], s_sed) and torch.equal(held[3], s_sds))
+    untouched = torch.ones(SLASHER_V, dtype=torch.bool, device=dev)
+    untouched[rows] = False
+    sums_after = row_sums()
+    untouched_ok = bool(torch.equal(sums_before[:, untouched], sums_after[:, untouched]))
+    del pre, held, sums_before, sums_after
+    t0 = time.perf_counter()
+    _, _, e_sed, e_sds = sd.batch_update(fmn, fmx, *epoch_l)
+    torch.cuda.synchronize()
+    epoch_wall = time.perf_counter() - t0
+    slasher_launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+    epoch_verdicts = (e_sed.cpu().numpy(), e_sds.cpu().numpy())
+    planted_ok = (not slot_verdicts[0].any()
+                  and np.nonzero(slot_verdicts[1])[0].tolist() == slot_planted.tolist()
+                  and np.nonzero(epoch_verdicts[0])[0].tolist() == epoch_planted.tolist()
+                  and not epoch_verdicts[1].any())
+    # every row after both batches against the plain version, a chunk of
+    # rows at a time, from the honest rows and the chunk's lanes
+    chunk_ok = True
+    ev_sed = torch.zeros(SLASHER_V, dtype=torch.bool, device=dev)
+    ev_sds = torch.zeros(SLASHER_V, dtype=torch.bool, device=dev)
+    for c0 in range(0, SLASHER_V, 65_536):
+        c1 = c0 + 65_536
+        cmn = min_row.expand(c1 - c0, H).clone()
+        cmx = max_row.expand(c1 - c0, H).clone()
+        for lanes, out in ((slot_l, None), (epoch_l, (ev_sed, ev_sds))):
+            sel = (lanes[0] >= c0) & (lanes[0] < c1)
+            r = sd.batch_update_plain(cmn, cmx, lanes[0][sel] - c0, lanes[1][sel], lanes[2][sel],
+                                      lanes[3][sel])
+            if out is not None:
+                idx = torch.nonzero(sel)[:, 0]
+                out[0][idx], out[1][idx] = r[2], r[3]
+        chunk_ok &= torch.equal(cmn, fmn[c0:c1]) and torch.equal(cmx, fmx[c0:c1])
+        del cmn, cmx
+    chunk_ok &= torch.equal(ev_sed, e_sed) and torch.equal(ev_sds, e_sds)
+    peak = torch.cuda.max_memory_allocated()
+    g_slot = sd.group_lanes(slot_l[0], slot_l[1], slot_l[3], SLASHER_V, H)
+    g_epoch = sd.group_lanes(epoch_l[0], epoch_l[1], epoch_l[3], SLASHER_V, H)
+    so, ss = (torch.zeros(len(slot_b[0]), dtype=torch.bool, device=dev) for _ in range(2))
+    eo, es = (torch.zeros(SLASHER_V, dtype=torch.bool, device=dev) for _ in range(2))
+    slot_ms = cuda_build.time_ms(lambda: sd.launch_rows(fmn, fmx, g_slot, slot_l[1], slot_l[2], so, ss))
+    epoch_ms = cuda_build.time_ms(lambda: sd.launch_rows(fmn, fmx, g_epoch, epoch_l[1], epoch_l[2], eo, es))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sd.group_lanes(slot_l[0], slot_l[1], slot_l[3], SLASHER_V, H)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sd.group_lanes(epoch_l[0], epoch_l[1], epoch_l[3], SLASHER_V, H)
+    torch.cuda.synchronize()
+    glue_s = (t1 - t0, time.perf_counter() - t1)
+    sl["full"] = {
+        "rows": SLASHER_V, "H": H, "array_gib": 2 * SLASHER_V * H * 4 / 2**30,
+        "max_memory_allocated_gib": peak / 2**30, "launches": slasher_launches,
+        "slot": {"lanes": len(slot_b[0]), "touched_rows": int(rows.numel()), "ms": slot_ms,
+                 "bound_ms": slasher_bound(slot_l),
+                 "bound_rows_ms": slasher_rows_bound(int(rows.numel()), len(slot_b[0])),
+                 "wall_s": slot_wall, "glue_s": glue_s[0], "surrounds_at": len(slot_planted)},
+        "epoch": {"lanes": SLASHER_V, "touched_rows": SLASHER_V, "ms": epoch_ms,
+                  "bound_ms": slasher_bound(epoch_l),
+                  "bound_rows_ms": slasher_rows_bound(SLASHER_V, SLASHER_V),
+                  "wall_s": epoch_wall, "glue_s": glue_s[1], "surrounded_at": len(epoch_planted)},
+        "planted_exact": planted_ok, "touched_rows_equal_plain": touched_ok,
+        "untouched_checksums_equal": untouched_ok, "every_row_equal_plain": bool(chunk_ok),
+        "phase_s": time.perf_counter() - t_phase}
+    print(smi, flush=True)
+    emit("slasher", **sl["full"])
+    assert planted_ok and touched_ok and untouched_ok and chunk_ok, sl["full"]
+    assert slasher_launches == {"slasher_update": 2}, slasher_launches
+    sl_ptxas = {name: dict(rec, **ptxas["slasher_update"]["functions"].get(name, {}))
+                for name, rec in ptxas["slasher_update"]["kernels"].items()}
+    records["slasher_update"] = {
+        "ms": slot_ms, "plain_ms": slice_plain_ms, "bound_ms": sl["full"]["slot"]["bound_ms"],
+        "bound_by": "bytes", "max_abs_err": slice_err,
+        "bound_rows_ms": sl["full"]["slot"]["bound_rows_ms"], "ms_epoch_batch": epoch_ms,
+        "bound_ms_epoch_batch": sl["full"]["epoch"]["bound_ms"],
+        "bound_rows_ms_epoch_batch": sl["full"]["epoch"]["bound_rows_ms"],
+        "ms_slice": sl["slice"]["ms"], "bound_ms_slice": sl["slice"]["bound_ms"],
+        "max_abs_err_odd_h": max(r["max_abs_err"] for r in sl["odd_h"]), "ptxas": sl_ptxas}
+    records["slasher_phase"] = sl
+    del fmn, fmx, slot_l, epoch_l, g_slot, g_epoch
+    torch.cuda.empty_cache()
+
     # ------------------------------------------- 8. tensor-core probe
     probe = {form: mma_probe.probe(form, dev) for form in mma_probe.FORMS}
     probe_launches = {}
@@ -2154,6 +2520,18 @@ def main() -> int:
                       "rfield.mul_lazy and add); 6 live blobs in a bucket of 8 x 8,192 points x "
                       "4,096 coefficients, bound_ms on the live lanes (bound_bucket_ms on the 8); "
                       "launches from one extend_blobs call"),
+        "epoch_rewards": (csrc + "epoch_rewards.cu", "lighthouse_tpu/state_processing/epoch_kernel.py:37",
+                          "XLA on the TPU, no Pallas kernel (_kernel: one jitted elementwise pass "
+                          "with three (V,) sums); one C entry, two launches (the sums, the pass), "
+                          "counted as one; ms, plain_ms and bound at 1,048,576 seeded validators, "
+                          "leak off (leak_ms on); launches from one process_epoch call at 1,048,576"),
+        "slasher_update": (csrc + "slasher_update.cu", "lighthouse_tpu/slasher/device.py:39",
+                           "XLA on the TPU, no Pallas kernel (batch_update and _gather_checks); ms "
+                           "and bound_ms: one slot's batch (32,800 lanes) in place at 1,048,576 x "
+                           "4,096; ms_epoch_batch at 1,048,576 lanes; bound_ms counts the columns "
+                           "each touched row needs, bound_rows_ms whole rows; plain_ms, max_abs_err "
+                           "and ms_slice on the 65,536-row slice (max_abs_err_odd_h at H = 37 and "
+                           "4,095); launches from the two batches"),
     }
     # the kzg block's shapes (32 lanes at 64 windows, a fold of 32 -> 2, two
     # pairs) and the MSMs' (the fold of 64 x 4,096 lanes, the Horner ladder
@@ -2194,6 +2572,11 @@ def main() -> int:
                          bound_ms_1024=records["merkle"][1_024]["bound_ms"],
                          hashlib_ms=rec["hashlib_ms"], hashlib_ms_1024=records["merkle"][1_024]["hashlib_ms"],
                          bound_formula_ms=rec["bound_formula_ms"])
+        elif name in ("epoch_rewards", "slasher_update"):
+            rec = records[name]
+            launches = (epoch_launches if name == "epoch_rewards" else slasher_launches).get(name, 0)
+            entry.update({k: v for k, v in rec.items() if k not in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "fp_products", "leak")})
         else:
             rec, launches = records["probe"][name], probe_launches[name]
         entry.update({

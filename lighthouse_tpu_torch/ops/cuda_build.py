@@ -3,8 +3,9 @@
 Each source under `lighthouse_tpu_torch/csrc/` (one per kernel family; K1,
 K2, K3, the helpers, the subgroup check and the Fp product's timing include
 the register arithmetic of `fp_reg.cuh`, K2, K3 and the product through
-`lanes.cuh`; the SHA-256 fold of the Merkle plane and the Fr Horner
-kernel of the Reed-Solomon extension include nothing)
+`lanes.cuh`; the SHA-256 fold of the Merkle plane, the Fr Horner kernel of
+the Reed-Solomon extension, the epoch rewards pass and the slasher's
+update include nothing)
 compiles at first use into its own shared library with a plain C
 interface under `lighthouse_tpu_torch/build/`:
 
@@ -74,6 +75,8 @@ SOURCES = {
     "subgroup": {"lh_g2_subgroup": [_P, _P, _P, _I, _P, _P], "lh_g2_subgroup_blocks_per_sm": [_P, _P]},
     "sha256_fold": {"lh_sha256_fold": [_P, _P, _P, _I, _I, _P, _P]},
     "rs_extend": {"lh_rs_extend": [_P, _P, _I, _I, _I, _I, _P, _P]},
+    "epoch_rewards": {"lh_epoch_rewards": [_P] * 7 + [_I] + [_P] * 5},
+    "slasher_update": {"lh_slasher_update": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P]},
 }
 
 # kernel name -> launches through its wrapper
@@ -98,6 +101,8 @@ LAUNCHES = {
     "subgroup_g2": 0,
     "sha256_fold": 0,
     "rs_extend": 0,
+    "epoch_rewards": 0,
+    "slasher_update": 0,
 }
 
 # source -> {"seconds": build time, "ptxas": ptxas -v report}

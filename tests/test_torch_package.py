@@ -27,6 +27,8 @@ from lighthouse_tpu_torch.da.domain import geometry
 from lighthouse_tpu_torch.ops import final_exp, ladder, merkle_proof, miller, mma_probe, subgroup
 from lighthouse_tpu_torch.ops import rfield, rs_extend
 from lighthouse_tpu_torch.ops.slot_program import SlotProgram
+from lighthouse_tpu_torch.slasher import device as slasher_device
+from lighthouse_tpu_torch.state_processing import epoch_kernel
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "lighthouse_tpu_torch")
@@ -83,7 +85,7 @@ def test_every_kernel_has_a_source_and_a_counter():
         "lane_sum_g1", "lane_sum_g2", "to_affine_g1", "to_affine_g2",
         "jacobian_to_affine_g1", "jacobian_to_affine_g2", "ladder_g1_chain", "ladder_g2_chain", "ladder_g1_w2", "ladder_g2_w2",
         "pair_final_exp", "mma_probe_i8", "mma_probe_bf16", "subgroup_g2", "sha256_fold",
-        "rs_extend",
+        "rs_extend", "epoch_rewards", "slasher_update",
     }
 
 
@@ -137,6 +139,16 @@ WRAPPERS = {
     "rs_extend": lambda: rs_extend.eval_poly_batch(
         torch.zeros((4, 2, 8), dtype=torch.int32), torch.zeros((3, 8), dtype=torch.int32),
         require_kernel=True
+    ),
+    "epoch_rewards": lambda: epoch_kernel.rewards(
+        torch.zeros(4, dtype=torch.int64), torch.zeros(4, dtype=torch.uint8),
+        *[torch.zeros(4, dtype=torch.int64)] * 2, *[torch.ones(4, dtype=torch.bool)] * 3,
+        (1, 1, 1, 0, 4, 16, 4), require_kernel=True
+    ),
+    "slasher_update": lambda: slasher_device.batch_update(
+        torch.zeros((4, 8), dtype=torch.int32), torch.zeros((4, 8), dtype=torch.int32),
+        *[torch.zeros(2, dtype=torch.int32)] * 3, torch.ones(2, dtype=torch.bool),
+        device="cpu", require_kernel=True
     ),
 }
 
@@ -213,6 +225,43 @@ def test_new_entry_points_without_gpu_raise(call, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call(sets)
     assert ran == [] and (fd.FP_PRODUCTS, rfield.FR_PRODUCTS) == products
+
+
+def _altair_state(epoch):
+    from lighthouse_tpu_torch.types.containers import types_for
+    from lighthouse_tpu_torch.types.spec import minimal_spec
+
+    spec = minimal_spec(ALTAIR_FORK_EPOCH=0)
+    state = types_for(spec).BeaconStateAltair()
+    state.slot = (epoch + 1) * spec.SLOTS_PER_EPOCH - 1  # the epoch's last slot
+    return state, spec
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        lambda: epoch_kernel.run_inactivity_and_rewards(*_altair_state(3), None),
+        lambda: __import__("lighthouse_tpu_torch.state_processing.per_epoch",
+                           fromlist=["process_epoch"]).process_epoch(*_altair_state(3)),
+        lambda: __import__("lighthouse_tpu_torch.state_processing.per_slot",
+                           fromlist=["process_slots"]).process_slots(
+            _altair_state(3)[0], 4 * 8, _altair_state(3)[1]),
+        lambda: slasher_device.batch_update(
+            torch.zeros((4, 8), dtype=torch.int32), torch.zeros((4, 8), dtype=torch.int32),
+            *[torch.zeros(2, dtype=torch.int32)] * 3, torch.ones(2, dtype=torch.bool)),
+    ],
+    ids=["run_inactivity_and_rewards", "process_epoch", "process_slots", "batch_update"],
+)
+def test_epoch_and_slasher_entry_points_default_to_the_card(call, monkeypatch):
+    """Without a GPU, the default device raises before any plain version
+    runs."""
+    _needs_no_gpu()
+    ran = []
+    monkeypatch.setattr(epoch_kernel, "rewards_plain", lambda *a: ran.append("epoch"))
+    monkeypatch.setattr(slasher_device, "batch_update_plain", lambda *a: ran.append("slasher"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    assert ran == []
 
 
 def test_cuda_table_without_gpu_raises():

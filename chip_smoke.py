@@ -159,14 +159,23 @@ non-zero without its result line:
  7h. da: the data-availability plane at mainnet width (types/spec.py:
     6 blobs of 4,096 elements, cells of 64, 128 columns on 128 subnets,
     custody 4; phase 7e's blobs and setup): the Fr Horner kernel
-    (csrc/rs_extend.cu) word for word against its plain version at 6 blobs
-    (bucket 8) x 8,192 points, its device time beside its bound (Fr
-    products x 256 multiply-adds on the live lanes), ptxas's registers,
-    stack frame and spills (none allowed), 64 seeded points of every blob
-    against host Horner, its plain_out form on Montgomery coefficients
-    equal to it; an edge batch (a zero blob, a blob of all r - 1; 1, 3 and
-    6 blobs, one launch each); extend_blobs(backend="gpu") equal to the
-    held output, wall p50 of 3; the six blobs' cells and proofs through
+    (csrc/rs_extend.cu, each chain split into S segments) word for word
+    against its plain version on the 6 live blobs x 8,192 points (no
+    padding chains), its device time beside its bound (Fr products x 256
+    multiply-adds) and the split's extra products, its plan (S, the
+    resident blocks an SM the runtime reports, waves), ptxas's registers,
+    stack frame and spills of its two instantiations (S = 4 and 8; none
+    allowed), 64 seeded points of every blob against host Horner, its
+    plain_out form on Montgomery coefficients equal to it; a kernel edge
+    batch against the plain version, on two shapes, each with points 0, 1
+    and r - 1 and a blob of all r - 1: 3 blobs x 256 points, where the plan
+    takes S = 8, at n_coeff 1, 2, 3, 7, 8, 33, 4,095 and 4,097 (S dividing
+    it or not, n below S), and 48 points x the fewest blobs (searched)
+    where it takes S = 4, at n_coeff 1, 2, 3, 4, 5, 33 and 1,023); an
+    extension edge batch (a zero blob, a blob of all r - 1; 1, 3 and 6
+    blobs, one launch each on the live blobs alone);
+    extend_blobs(backend="gpu") equal to the held output, wall p50 of 3;
+    the six blobs' cells and proofs through
     "gpu" (one extension and 128 fixed-base MSMs a blob: its launches),
     cells 0, 1 and 127 of blob 0 against host Horner and their proofs
     against "ref"; the custody sample (custody_columns("node-0"): 24 cells)
@@ -184,8 +193,15 @@ non-zero without its result line:
     against its plain version at 1,048,576 seeded validators, leak off and
     on, and on an edge batch of 4,608 lanes (every flag and mask
     combination, zero effective balance, scores at the int64 envelope's
-    edge, balances driven below zero), its device time beside its byte
-    bound and ptxas's report; process_epoch(device="cuda") on a
+    edge, balances driven below zero) and a wrapping batch of 4,099 seeded
+    full-range int64 lanes under increments and inactivity denominators
+    1, 2, 3, 63, 64, 65, 10^9, 2^31 - 1, 2^31 + 1, 2^62 and 2^63 - 1 and
+    reward denominators that wrap (active_increments 1, 1,000, 2^57,
+    2^57 + 5, 2^58 + 3), leak off and on, and once on rows one element
+    off their vector alignment; its device time beside its byte bound,
+    ptxas's report (no stack frame, no spill in any of its kernels) and
+    its grids (the resident blocks an SM the runtime reports, waves);
+    process_epoch(device="cuda") on a
     mainnet-spec altair state of 1,048,576 validators
     (testing.epoch_state, seeded; an epoch that rotates no sync committee)
     with its wall and its split (extraction, upload, kernel, read-back,
@@ -289,8 +305,8 @@ N_VALIDATORS = 32_768
 EPOCH_V = 1_048_576
 EPOCH_AT = 1_000
 BOUNDARY_V = 16_384
-# the rewards pass's integer operations a validator (six 64-bit floor
-# divisions, eight multiplications, the selects and sums), one each
+# the rewards pass's integer operations a validator (two divisions by
+# magic numbers, eight multiplications, the selects and sums), one each
 EPOCH_INT_OPS = 64
 # the slasher plane: ~1 M validators x SlasherConfig's history_length
 # (lighthouse_tpu/slasher/slasher.py:42), one slot's attesters, the planted
@@ -1860,11 +1876,12 @@ def main() -> int:
 
     # ------------------------------------------ 7h. data availability (da)
     # the DA plane at mainnet width (MAINNET_DA; phase 7e's six blobs and
-    # setup): the Horner kernel against its plain version at 6 blobs (bucket
-    # 8) x 8,192 points, exact; 64 seeded points of every blob against host
-    # Horner; its plain_out form (rs_extend_graph) on Montgomery
-    # coefficients equal to it; an edge batch (a zero blob, a blob of all
-    # r - 1, blob counts 1, 3 and 6); extend_blobs p50; the six blobs' cells
+    # setup): the Horner kernel against its plain version on the 6 live
+    # blobs x 8,192 points, exact; 64 seeded points of every blob against
+    # host Horner; its plain_out form (rs_extend_graph) on Montgomery
+    # coefficients equal to it; the kernel's edge batch (n_coeff that S
+    # divides or not, every S); an extension edge batch (a zero blob, a
+    # blob of all r - 1, blob counts 1, 3 and 6); extend_blobs p50; the six blobs' cells
     # and proofs, three of blob 0 against "ref"; cell verifies (the custody
     # sample, the full block, three tampered batches, "ref"); reconstruction
     # at 1,024 elements; the bus; the guard
@@ -1878,8 +1895,7 @@ def main() -> int:
                        "cell_elements": dm, "columns": dgeo.num_cells, "blobs": dn}}
     drecs = records.setdefault("da", {})
     dpolys = [da_erasure.blob_to_ints(b, dgeo) for b in blobs]
-    dbucket = da_gpu._bucket(dn)
-    d_coeffs = torch.from_numpy(da_gpu.pack_coefficients(dpolys, dgeo.blob_elements, dbucket)).to(dev)
+    d_coeffs = torch.from_numpy(da_gpu.pack_coefficients(dpolys, dgeo.blob_elements, dn)).to(dev)
     d_points = da_gpu.domain_points(dgeo, dev)
 
     def horner_bound(blob_lanes):
@@ -1889,22 +1905,26 @@ def main() -> int:
             / HBM_BYTES_PER_S * 1e3
         return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
+    # the kernel's two instantiations (S = 4, 8): no stack frame, no spill
     rs_ptxas = {name: dict(rec, **ptxas["rs_extend"]["functions"].get(name, {}))
                 for name, rec in ptxas["rs_extend"]["kernels"].items()}
+    assert len(rs_ptxas) == 2 and not ptxas["rs_extend"]["spill_store_bytes"] \
+        and not any(r["stack_bytes"] or r.get("stack_frame") for r in rs_ptxas.values()), \
+        f"rs_extend: stack frame or spills {rs_ptxas}"
+    rs_plan = rs_extend.plan(dgeo.blob_elements, dn, dgeo.ext_elements, dev)
     fr0 = rfield.FR_PRODUCTS
     drecs["rs_extend"] = hold(
         "rs_extend", lambda: rs_extend.eval_poly_batch(d_coeffs, d_points),
         lambda: rs_extend.eval_poly_batch_plain(d_coeffs, d_points), nb(d_coeffs, d_points),
         bound=horner_bound(dn),
         extra={"fr_products": rs_extend.horner_products(dgeo.blob_elements, dgeo.ext_elements, dn),
-               "bound_bucket_ms": horner_bound(dbucket)[0], "lanes": [dgeo.ext_elements, dbucket],
-               "live_blobs": dn, "ptxas": rs_ptxas})
+               "split_products": rs_extend.split_products(dgeo.blob_elements, dgeo.ext_elements, dn,
+                                                          rs_plan["segments"]),
+               "lanes": [dgeo.ext_elements, dn], "live_blobs": dn, "plan": rs_plan,
+               "ptxas": rs_ptxas})
     drecs["rs_extend"]["fr_products_plain"] = rfield.FR_PRODUCTS - fr0
-    assert len(rs_ptxas) == 1 and not ptxas["rs_extend"]["spill_store_bytes"] \
-        and not any(r["stack_bytes"] or r.get("stack_frame") for r in rs_ptxas.values()), \
-        f"rs_extend: stack frame or spills {rs_ptxas}"
     d_out = rs_extend.eval_poly_batch(d_coeffs, d_points).cpu().numpy()
-    d_flat = rfield.words_to_ints(d_out[:, :dn])
+    d_flat = rfield.words_to_ints(d_out)
     d_evals = [d_flat[b::dn] for b in range(dn)]
 
     def host_horner(poly, x):
@@ -1921,13 +1941,53 @@ def main() -> int:
     host_sample_s = time.perf_counter() - t0
     # the plain_out form on Montgomery coefficients gives the same plain values
     mont = torch.from_numpy(rfield.mont_words(
-        [v for i in range(dgeo.blob_elements) for b in range(dbucket)
-         for v in [dpolys[b][i] if b < dn else 0]]).reshape(dgeo.blob_elements, dbucket, rfield.NW)).to(dev)
+        [dpolys[b][i] for i in range(dgeo.blob_elements) for b in range(dn)]).reshape(
+            dgeo.blob_elements, dn, rfield.NW)).to(dev)
     graph_eq = bool(torch.equal(rs_extend.rs_extend_graph(mont, d_points).cpu(), torch.from_numpy(d_out)))
     da["kernel"] = {"sampled_points": len(d_sample), "sample_eq_host": sample_ok,
-                    "host_sample_s": host_sample_s, "padding_zero": not d_out[:, dn:].any(),
-                    "rs_extend_graph_eq": graph_eq}
-    assert sample_ok and da["kernel"]["padding_zero"] and graph_eq, da["kernel"]
+                    "host_sample_s": host_sample_s, "blob_lanes": int(d_coeffs.shape[1]),
+                    "rs_extend_graph_eq": graph_eq, "plan": rs_plan}
+    assert sample_ok and da["kernel"]["blob_lanes"] == dn and graph_eq, da["kernel"]
+    # the kernel's edge batch against the plain version: points 0, 1 and
+    # r - 1 among seeded ones, blob 1 all r - 1, n_coeff that S divides or
+    # not and below S; 3 blobs x 256 points, where the plan takes S = 8,
+    # and 48 points x the fewest blobs where it takes S = 4 (48 points are
+    # 2 blocks of 32 at S = 4 and 3 of 16 at S = 8, so some blob count
+    # fills S = 4's last wave better)
+    erng_d = np.random.default_rng(15)
+
+    def rand_mont(n):
+        return rfield.mont_words([int.from_bytes(erng_d.bytes(32), "little") % R_ORDER
+                                  for _ in range(n)])
+
+    def edge_points(n):
+        return torch.from_numpy(np.concatenate(
+            [rfield.mont_words([0, 1, R_ORDER - 1]), rand_mont(n - 3)])).to(dev)
+
+    s4_blobs = next((b for b in range(1, 8_192) if rs_extend.plan(33, b, 48, dev)["segments"] == 4),
+                    None)
+    assert s4_blobs is not None, "rs_extend: no blob count at 48 points where the plan takes S = 4"
+    k_edge = {}
+    for blobs_e, pts_e, n_cs in ((3, 256, (1, 2, 3, 7, 8, 33, 4_095, 4_097)),
+                                 (s4_blobs, 48, (1, 2, 3, 4, 5, 33, 1_023))):
+        e_pts = edge_points(pts_e)
+        for n_c in n_cs:
+            cw = rand_mont(blobs_e * n_c).reshape(n_c, blobs_e, rfield.NW)
+            cw[:, 1] = rfield.mont_words([R_ORDER - 1] * n_c)
+            cw = torch.from_numpy(cw).to(dev)
+            row = {"blobs": blobs_e, "points": pts_e,
+                   "segments": rs_extend.plan(n_c, blobs_e, pts_e, dev)["segments"],
+                   "eq": bool(torch.equal(rs_extend.eval_poly_batch(cw, e_pts),
+                                          rs_extend.eval_poly_batch_plain(cw, e_pts)))}
+            if n_c < 100:
+                row["plain_out"] = bool(torch.equal(
+                    rs_extend.eval_poly_batch(cw, e_pts, plain_out=True),
+                    rs_extend.eval_poly_batch_plain(cw, e_pts, True)))
+            k_edge[f"{blobs_e}x{pts_e}_n{n_c}"] = row
+    da["kernel_edge"] = k_edge
+    assert all(r["eq"] and r.get("plain_out", True) for r in k_edge.values()), k_edge
+    assert {r["segments"] for r in k_edge.values()} == {4, 8} and all(
+        r["segments"] == (4 if r["points"] == 48 else 8) for r in k_edge.values()), k_edge
     # the edge batch: blob counts 1, 3 and 6 through extend_blobs, a zero
     # blob and a blob of all r - 1 among them
     zero_blob = bytes(dgeo.blob_bytes)
@@ -1940,10 +2000,12 @@ def main() -> int:
         ev = da_erasure.extend_blobs(bl, dgeo, backend="gpu", device="cuda")
         launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
         ok = ev[0] == [0] * dgeo.ext_elements and launches == {"rs_extend": 1}
+        ok &= da_gpu.LAST_EXTEND_STATS["lanes"] == count  # no padding chains
         if count > 1:
             ok &= all(ev[1][p] == host_horner(rm1_poly, dgeo.ext_points[p]) for p in d_sample)
             ok &= ev[2:] == d_evals[: count - 2]
-        edge[count] = {"ok": ok, "lanes": da_gpu.LAST_EXTEND_STATS["lanes"], "launches": launches}
+        edge[count] = {"ok": ok, "lanes": da_gpu.LAST_EXTEND_STATS["lanes"],
+                       "bucket": da_gpu.LAST_EXTEND_STATS["bucket"], "launches": launches}
     da["edge"] = edge
     assert all(e["ok"] for e in edge.values()), edge
     # extend_blobs on the six: equal to the held kernel (so to the plain path)
@@ -1955,6 +2017,7 @@ def main() -> int:
         walls.append(time.perf_counter() - t0)
         splits.append(dict(da_gpu.LAST_EXTEND_STATS))
         assert ev == d_evals, "da: extend_blobs differs from the kernel's held output"
+        assert splits[-1]["lanes"] == dn, splits[-1]
     extend_launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
     assert extend_launches == {"rs_extend": 1}, extend_launches
     da["extend"] = {"p50_s": statistics.median(walls), "walls_s": walls, "splits": splits,
@@ -2207,14 +2270,46 @@ def main() -> int:
     ep["edge"] = {"lanes": len(combos), "exact_no_leak": edge_ok[False], "exact_leak": edge_ok[True],
                   "clamped_to_zero": int((edge[3] > 0).sum())}
     assert all(edge_ok.values()), ep["edge"]
+    # the wrapping batch: full-range int64 lanes, so products, sums and
+    # quotients wrap and dividends go negative, under the divisors that the
+    # kernel's magic numbers must floor exactly; reward denominators that
+    # wrap (2**57: INT64_MIN, 2**57 + 5: below 0, 2**58 + 3: 192); and once
+    # on rows one element off their vector alignment (4,098 lanes)
+    m_w = 4_099
+    wrng = np.random.default_rng(16)
+    wrap = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        wrng.integers(-2**63, 2**63 - 1, m_w, dtype=np.int64, endpoint=True),
+        wrng.integers(0, 256, m_w).astype(np.uint8),
+        wrng.integers(-2**63, 2**63 - 1, m_w, dtype=np.int64, endpoint=True),
+        wrng.integers(-2**63, 2**63 - 1, m_w, dtype=np.int64, endpoint=True),
+        wrng.random(m_w) < 0.7, wrng.random(m_w) < 0.2, wrng.random(m_w) < 0.8)]
+    wrap_ok, wrap_cases = {}, 0
+    for d in (1, 2, 3, 63, 64, 65, 10**9, 2**31 - 1, 2**31 + 1, 2**62, 2**63 - 1):
+        for ai in (1, 1_000, 2**57, 2**57 + 5, 2**58 + 3):
+            for leak in (0, 1):
+                prm = (2**40 + 7, d, ai, leak, 2**62, 3, d)
+                got, want = ek.rewards(*wrap, prm), ek.rewards_plain(*wrap, prm)
+                wrap_ok[f"{d}/{ai}/{leak}"] = all(torch.equal(a, b) for a, b in zip(got, want))
+                wrap_cases += 1
+        off = [t[1:] for t in wrap]
+        prm = (2**40 + 7, d, 1_000, 0, 2**62, 3, d)
+        wrap_ok[f"{d}/unaligned"] = all(torch.equal(a, b) for a, b in zip(
+            ek.rewards(*off, prm), ek.rewards_plain(*off, prm)))
+    ep["wrap"] = {"lanes": m_w, "cases": wrap_cases + 11, "exact": all(wrap_ok.values()),
+                  "failed": [k for k, v in wrap_ok.items() if not v]}
+    assert ep["wrap"]["exact"], ep["wrap"]
     ep_ptxas = {name: dict(rec, **ptxas["epoch_rewards"]["functions"].get(name, {}))
                 for name, rec in ptxas["epoch_rewards"]["kernels"].items()}
-    ep["kernel"] = {"ptxas": ep_ptxas, "leak_ms": erecs[True]["ms"],
+    assert len(ep_ptxas) == 3 and not ptxas["epoch_rewards"]["spill_store_bytes"] \
+        and not any(r["stack_bytes"] or r.get("stack_frame") for r in ep_ptxas.values()), \
+        f"epoch_rewards: stack frame or spills {ep_ptxas}"
+    ep_plan = ek.plan(n, dev)
+    ep["kernel"] = {"ptxas": ep_ptxas, "plan": ep_plan, "leak_ms": erecs[True]["ms"],
                     "leak_plain_ms": erecs[True]["plain_ms"]}
     print(smi, flush=True)
-    emit("epoch_kernel", **ep["kernel"], edge=ep["edge"])
-    records["epoch_rewards"] = dict(erecs[False], ptxas=ep_ptxas, leak_ms=erecs[True]["ms"])
-    del e_arrs, edge
+    emit("epoch_kernel", **ep["kernel"], edge=ep["edge"], wrap=ep["wrap"])
+    records["epoch_rewards"] = dict(erecs[False], ptxas=ep_ptxas, plan=ep_plan, leak_ms=erecs[True]["ms"])
+    del e_arrs, edge, wrap, off
 
     # the path: process_epoch at 1,048,576 validators on the card, then the
     # same state on the CPU (the plain version; the spec's Python passes
@@ -2517,14 +2612,17 @@ def main() -> int:
                         "16,384; hashlib_ms the host oracle on the same queries"),
         "rs_extend": (csrc + "rs_extend.cu", "lighthouse_tpu/ops/rs_extend.py:36",
                       "XLA on the TPU, no Pallas kernel (eval_poly_batch's fori_loop over "
-                      "rfield.mul_lazy and add); 6 live blobs in a bucket of 8 x 8,192 points x "
-                      "4,096 coefficients, bound_ms on the live lanes (bound_bucket_ms on the 8); "
-                      "launches from one extend_blobs call"),
+                      "rfield.mul_lazy and add); the 6 live blobs (no padding chains) x 8,192 "
+                      "points x 4,096 coefficients, each chain split into plan.segments lanes; "
+                      "bound_ms the function's products (split_products: the split's extra, "
+                      "apart); launches from one extend_blobs call"),
         "epoch_rewards": (csrc + "epoch_rewards.cu", "lighthouse_tpu/state_processing/epoch_kernel.py:37",
                           "XLA on the TPU, no Pallas kernel (_kernel: one jitted elementwise pass "
-                          "with three (V,) sums); one C entry, two launches (the sums, the pass), "
-                          "counted as one; ms, plain_ms and bound at 1,048,576 seeded validators, "
-                          "leak off (leak_ms on); launches from one process_epoch call at 1,048,576"),
+                          "with three (V,) sums); one C entry, two launches (the sums with the "
+                          "epoch's scalars in its last block, the pass as a programmatic dependent "
+                          "launch), counted as one; no 64-bit division (magic numbers); ms, "
+                          "plain_ms and bound at 1,048,576 seeded validators, leak off (leak_ms "
+                          "on); launches from one process_epoch call at 1,048,576"),
         "slasher_update": (csrc + "slasher_update.cu", "lighthouse_tpu/slasher/device.py:39",
                            "XLA on the TPU, no Pallas kernel (batch_update and _gather_checks); ms "
                            "and bound_ms: one slot's batch (32,800 lanes) in place at 1,048,576 x "
@@ -2536,6 +2634,9 @@ def main() -> int:
     # the kzg block's shapes (32 lanes at 64 windows, a fold of 32 -> 2, two
     # pairs) and the MSMs' (the fold of 64 x 4,096 lanes, the Horner ladder
     # on 64 lanes and its fold, the variable-base ladder on 4,096 lanes)
+    REDESIGNED = {  # PERF.md's kernel table names the change that made each design
+        "rs_extend": "redesigned: live blobs only, chains split into segments, PTX carry chains",
+        "epoch_rewards": "redesigned: no 64-bit division, the epoch's scalars once, one dependent launch"}
     kzg_extra = {"ladder_g1": ("ladder_g1_horner", "ladder_g1_variable"),
                  "lane_sum_g1": ("lane_sum_g1_msm", "lane_sum_g1_horner")}
 
@@ -2545,6 +2646,8 @@ def main() -> int:
     kernels = []
     for name, (source, replaces, note) in meta.items():
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
+        if name in REDESIGNED:
+            entry["status"] = REDESIGNED[name]
         if name == "jacobian_to_affine_g1":  # the point path: the flat batch alone
             rec, launches = records["flat"][name], flat_launches[name]
         elif name in records["grouped"] and not name.endswith(("_chain", "_w2")):
@@ -2563,8 +2666,8 @@ def main() -> int:
             entry.update({k: rec[k] for k in ("lanes", "ms_1058", "ms_1024")})
         elif name == "rs_extend":
             rec, launches = records["da"][name], da_launches["extend"][name]
-            entry.update({k: rec[k] for k in ("lanes", "live_blobs", "fr_products", "bound_bucket_ms",
-                                              "ptxas")})
+            entry.update({k: rec[k] for k in ("lanes", "live_blobs", "fr_products", "split_products",
+                                              "plan", "ptxas")})
             entry["launches_a_blob_proofs"] = da_launches["proofs"][name]
         elif name == "sha256_fold":
             rec, launches = records["merkle"][16_384], records["merkle"][16_384]["launches"]

@@ -100,8 +100,8 @@ def extend_blobs(
 ) -> list:
     """Extend a block's blobs: list of blob bytes -> list of 2n-long
     evaluation lists (ints, natural domain order). One batched dispatch
-    for the whole block; blob lanes pad to a power-of-two bucket. On
-    "gpu" the kernel runs on `device`."""
+    for the whole block. On "gpu" the kernel runs on `device`, on the live
+    blobs alone."""
     backend = check_backend(backend)
     polys = [blob_to_ints(b, geo) for b in blobs]
     if not polys:

@@ -2,11 +2,11 @@
 
 The port of `lighthouse_tpu/da/tpu_backend.py`. Two device workloads:
 
-* `rs_extend_gpu` -- the Reed-Solomon extension. Blob lanes pad to a
-  power-of-two bucket (at least `MIN_BUCKET`) with zero polynomials (a zero
-  polynomial evaluates to zero everywhere, so padding cannot perturb live
-  lanes), and ONE launch of the Fr Horner kernel (`ops/rs_extend.py`,
-  `csrc/rs_extend.cu`) evaluates every (point, blob) pair. The reference
+* `rs_extend_gpu` -- the Reed-Solomon extension. ONE launch of the Fr
+  Horner kernel (`ops/rs_extend.py`, `csrc/rs_extend.cu`) evaluates every
+  (point, blob) pair of the live blobs: no chain runs on padding (the
+  reference pads the blob lanes to a power-of-two bucket; here the bucket,
+  at least `MIN_BUCKET`, is only the dispatch metric's label). The reference
   converts the coefficients into Montgomery form and the evaluations back;
   here the coefficients upload as plain words and the domain's points as
   Montgomery words (computed once a geometry and kept on the device), so
@@ -73,7 +73,7 @@ from lighthouse_tpu_torch.ops.device_io import device_lock, resolve_device, to_d
 
 _EXTEND_BATCHES = REGISTRY.counter_vec(
     "lighthouse_tpu_da_extend_device_batches_total",
-    "RS-extension device dispatches by bucketed blob lane count",
+    "RS-extension device dispatches by bucketed blob count",
     ("lanes",),
 )
 _CELL_DEVICE_BATCHES = REGISTRY.counter_vec(
@@ -84,9 +84,9 @@ _CELL_DEVICE_BATCHES = REGISTRY.counter_vec(
 
 MIN_BUCKET = 2
 
-# host/device split of the last extension: blobs, lanes, and the ms of
-# packing the coefficients and of the device call (uploads, the launch,
-# the read)
+# host/device split of the last extension: blobs, the blob lanes launched
+# (the live blobs), the metric's bucket, and the ms of packing the
+# coefficients and of the device call (uploads, the launch, the read)
 LAST_EXTEND_STATS: dict = {}
 
 # host/device split of the last cell verify: cells, lanes, and the ms of
@@ -118,11 +118,11 @@ def domain_points(geo: CellGeometry, dev):
     return hit
 
 
-def pack_coefficients(polys, n_coeff: int, bucket: int) -> np.ndarray:
-    """Coefficient lists -> (n_coeff, bucket, 8) plain words, coefficient
-    major (a Horner step reads one leading slice), zero polynomials in the
-    padding lanes."""
-    coeffs = np.zeros((n_coeff, bucket, rf.NW), dtype=np.int32)
+def pack_coefficients(polys, n_coeff: int, lanes: int) -> np.ndarray:
+    """Coefficient lists -> (n_coeff, lanes, 8) plain words, coefficient
+    major (a Horner step reads one leading slice), zero polynomials in any
+    lanes past the polynomials."""
+    coeffs = np.zeros((n_coeff, lanes, rf.NW), dtype=np.int32)
     if polys:
         words = rf.ints_to_words([v for poly in polys for v in poly])
         coeffs[:, : len(polys)] = words.reshape(len(polys), n_coeff, rf.NW).transpose(1, 0, 2)
@@ -136,21 +136,21 @@ def rs_extend_gpu(polys, geo: CellGeometry, consumer: str | None = None, device=
     n = len(polys)
     bucket = _bucket(n)
     t0 = time.perf_counter()
-    with span("da/extend_marshal", n_blobs=n, lanes=bucket):
-        coeffs = pack_coefficients(polys, geo.blob_elements, bucket)
+    with span("da/extend_marshal", n_blobs=n, lanes=n):
+        coeffs = pack_coefficients(polys, geo.blob_elements, n)
     t_marshal = time.perf_counter()
     _EXTEND_BATCHES.labels(str(bucket)).inc()
-    with span("da/extend_device", lanes=bucket), device_lock(dev):
+    with span("da/extend_device", lanes=n), device_lock(dev):
         out = rs_extend.eval_poly_batch(to_device(coeffs, dev), domain_points(geo, dev))
-        out = out[:, :n].cpu().numpy()
+        out = out.cpu().numpy()
     t_device = time.perf_counter()
-    attribution.note_batch(consumer, "rs_extend", lanes=bucket, live=n,
+    attribution.note_batch(consumer, "rs_extend", lanes=n, live=n,
                            duration_s=t_device - t_marshal)
     # (PTS, n, 8) point-major plain words -> per-blob int lists
     flat = rf.words_to_ints(out)
     LAST_EXTEND_STATS.clear()
     LAST_EXTEND_STATS.update({
-        "blobs": n, "lanes": bucket, "pack_ms": (t_marshal - t0) * 1e3,
+        "blobs": n, "lanes": n, "bucket": bucket, "pack_ms": (t_marshal - t0) * 1e3,
         "device_ms": (t_device - t_marshal) * 1e3,
         "unpack_ms": (time.perf_counter() - t_device) * 1e3,
     })

@@ -74,8 +74,10 @@ SOURCES = {
     },
     "subgroup": {"lh_g2_subgroup": [_P, _P, _P, _I, _P, _P], "lh_g2_subgroup_blocks_per_sm": [_P, _P]},
     "sha256_fold": {"lh_sha256_fold": [_P, _P, _P, _I, _I, _P, _P]},
-    "rs_extend": {"lh_rs_extend": [_P, _P, _I, _I, _I, _I, _P, _P]},
-    "epoch_rewards": {"lh_epoch_rewards": [_P] * 7 + [_I] + [_P] * 5},
+    "rs_extend": {"lh_rs_extend": [_P, _P, _I, _I, _I, _I, _P, _P],
+                  "lh_rs_extend_plan": [_I, _I, _I, _P, _P]},
+    "epoch_rewards": {"lh_epoch_rewards": [_P] * 7 + [_I] + [_P] * 5,
+                      "lh_epoch_rewards_plan": [_I, _P, _P]},
     "slasher_update": {"lh_slasher_update": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P]},
 }
 

@@ -28,9 +28,12 @@ the bounds).
 all lanes (the operation count behind the kernel's bound), as
 `field.FP_PRODUCTS` does for Fp.
 
-`mul_words` and `horner_step_words` model the kernel's own word-level
-steps in Python integers, the carries as `csrc/rs_extend.cu` writes them,
-with their bounds asserted.
+The kernel's steps are modelled in Python integers with their bounds
+asserted: `mul_words` is the CIOS product as `csrc/rs_extend.cu` runs it,
+four PTX carry chains a row with every carry flag;
+`horner_step_words` is the kernel's step, `eval_words` an unsplit chain
+and `split_eval_words` the kernel's split chain: S segment Horners,
+y = x^L by squarings, the combine.
 """
 
 from itertools import repeat
@@ -252,68 +255,149 @@ def from_mont(a):
 # -------------------------------------------- the kernel's steps, modelled
 
 
-def _mad(t: int, a: int, b: int, c: int) -> tuple:
-    """`mad` of csrc/rs_extend.cu: t + a b + c in 64 bits -> (low word,
-    high word); no overflow for 32-bit operands."""
-    v = t + a * b + c
-    assert v < 1 << 64
+def _madc(t: int, y: int, w: int, cf: int, hi: bool) -> tuple:
+    """PTX mad{c}.{lo,hi}.cc.u32: t + (the low or high half of y w) + the
+    carry flag -> (word, carry flag)."""
+    half = (y * w) >> 32 if hi else (y * w) & M32
+    v = t + half + cf
     return v & M32, v >> 32
 
 
+def _chain_even(t: list, y: int, w, tail_zero: bool) -> None:
+    """rs_extend.cu RS_EVEN on t[0..8]: y w_{2k} into words 2k and 2k + 1
+    for k = 0..3 in one carry chain, then word 8: the flag alone
+    ("addc.u32 %8, 0, 0", word 8 being 0) or word 8 plus the flag, which
+    must not carry out."""
+    cf = 0
+    for k in (0, 2, 4, 6):
+        t[k], cf = _madc(t[k], y, w[k], cf, False)
+        t[k + 1], cf = _madc(t[k + 1], y, w[k], cf, True)
+    if tail_zero:
+        assert t[NW] == 0
+        t[NW] = cf
+    else:
+        v = t[NW] + cf
+        assert v <= M32, "RS_EVEN: a carry out of word 8"
+        t[NW] = v
+
+
+def _chain_odd(t: list, y: int, w) -> None:
+    """rs_extend.cu RS_ODD on t[1..8]: y w_{2k+1} into words 2k + 1 and
+    2k + 2, the last a madc.hi without a carry out, which must not carry."""
+    cf = 0
+    for k in (1, 3, 5, 7):
+        t[k], cf = _madc(t[k], y, w[k], cf, False)
+        t[k + 1], cf = _madc(t[k + 1], y, w[k], cf, True)
+    assert cf == 0, "RS_ODD: a carry out of word 8"
+
+
 def mul_words(a: int, b: int) -> int:
-    """Word model of rs_extend.cu `fr_mul` (CIOS, 8 rows) for a < 2^256
-    and b < r: each row adds a_i b into the 8 words t and a ninth, the
-    carry out of that chain, then m r with m = t_0 N0 mod 2^32 and drops
-    the zeroed low word; the ninth word and that chain's carry fold into
-    word 7 with no carry out, since every row leaves t below
-    (2^256 + 2^32 (b + r)) / 2^32 < 2^256. No final subtraction: the value
-    out, (a b + M r) / 2^256 with M < 2^256, is below b + r < 2r. Returns a
-    value congruent to a b 2^-256 mod r."""
+    """Word model of rs_extend.cu `fr_mul` for a < 2^256, b < r: 8 CIOS
+    rows on 9 words, each row the chains RS_EVEN and RS_ODD of a_i b, then
+    m = t_0 N0 mod 2^32 and the chains of m r, which zero word 0; the
+    words shift down one. Word 8 is 0 at a row's start (t < b + r), no
+    chain carries out of word 8, and the value out, (a b + M r) / 2^256
+    with M = -a b r^-1 mod 2^256, is below b + r < 2r (asserted)."""
     assert 0 <= a < MONT_R and 0 <= b < R
     aw = [(a >> (32 * j)) & M32 for j in range(NW)]
     bw = [(b >> (32 * j)) & M32 for j in range(NW)]
-    t = [0] * NW
+    t = [0] * (NW + 1)
     for i in range(NW):
-        c = 0
-        for j in range(NW):
-            t[j], c = _mad(t[j], aw[i], bw[j], c)
-        top = c
+        _chain_even(t, aw[i], bw, tail_zero=True)
+        _chain_odd(t, aw[i], bw)
         m = t[0] * N0 & M32
-        lo, c = _mad(t[0], m, R_WORDS[0], 0)
-        assert lo == 0
-        for j in range(1, NW):
-            t[j - 1], c = _mad(t[j], m, R_WORDS[j], c)
-        v = top + c
-        assert v <= M32
-        t[NW - 1] = v
+        _chain_even(t, m, R_WORDS, tail_zero=False)
+        _chain_odd(t, m, R_WORDS)
+        assert t[0] == 0
+        t = t[1:] + [0]
     out = sum(w << (32 * k) for k, w in enumerate(t))
-    assert out < 2 * R and (out * MONT_R - a * b) % R == 0
+    assert out < b + R and (out * MONT_R - a * b) % R == 0
     return out
 
 
+def _sub_r_select(s: int, top: int) -> int:
+    """rs_extend.cu `sub_r_select`: s (8 words) and its carry top, the
+    value below 3r; the borrow chain of s - r ends in top - borrow, 0
+    (take s - r) or all ones (keep s)."""
+    assert 0 <= s < MONT_R and top in (0, 1) and s + (top << 256) < 3 * R
+    d = s - R
+    borrow = int(d < 0)
+    end = (top - borrow) & M32
+    assert end in (0, M32)
+    return s if end else d & (MONT_R - 1)
+
+
+def canon_words(v: int) -> int:
+    """rs_extend.cu `canon`: v < 2r -> v mod r."""
+    assert 0 <= v < 2 * R
+    return _sub_r_select(v, 0)
+
+
 def horner_step_words(acc: int, x: int, c: int) -> int:
-    """Word model of rs_extend.cu's Horner step for acc < 2r, x, c < r:
-    s = fr_mul(acc, x) + c in 8 words and a carry, then r subtracted once
-    when the carry is set or s >= r. Returns the next acc, below 2r."""
+    """rs_extend.cu `horner_step` for acc < 2r, x, c < r: t = fr_mul(acc,
+    x), the add chain t + c into 8 words and a carry, then
+    `sub_r_select`. Returns the next acc, below 2r."""
     assert 0 <= acc < 2 * R and 0 <= x < R and 0 <= c < R
-    t = mul_words(acc, x)
-    s = t + c
-    carry = s >> 256
-    s &= MONT_R - 1
-    if carry or s >= R:
-        s = (s + (carry << 256)) - R
-    assert 0 <= s < 2 * R
-    return s
+    s = mul_words(acc, x) + c
+    out = _sub_r_select(s & (MONT_R - 1), s >> 256)
+    assert out < 2 * R and out % R == s % R
+    return out
 
 
 def eval_words(coeffs, x: int, plain_out: bool = False) -> int:
-    """The kernel's chain for one (point, blob) lane, step by step in the
-    word model: Horner over `coeffs` (low degree first) at x, the final
-    product by one when `plain_out`, then the last conditional
-    subtraction."""
+    """One unsplit chain for one (point, blob) lane, step by step: Horner
+    over `coeffs` (low degree first) at x, the final product by one when
+    `plain_out`, then the last conditional subtraction."""
     acc = 0
     for c in reversed(coeffs):
         acc = horner_step_words(acc, x, c)
     if plain_out:
         acc = mul_words(acc, 1)
     return acc - R if acc >= R else acc
+
+
+def split_length(n_coeff: int, segments: int) -> int:
+    """L, the steps of a segment: ceil(n_coeff / segments)."""
+    return -(-n_coeff // segments)
+
+
+def pow_words(x: int, L: int) -> int:
+    """rs_extend.cu `pow_mont`: y = X^L in Montgomery form for the
+    canonical Montgomery word x of X, left to right over L's bits below
+    the top, each square and product made canonical."""
+    assert 0 <= x < R and L >= 1
+    y = x
+    for bit in range(L.bit_length() - 2, -1, -1):
+        y = canon_words(mul_words(y, y))
+        if (L >> bit) & 1:
+            y = canon_words(mul_words(y, x))
+    return y
+
+
+def split_eval_words(coeffs, x: int, segments: int, plain_out: bool = False) -> int:
+    """rs_extend.cu's chain split into S = `segments` lanes, for one
+    (point, blob) pair: with L = split_length(n, S), segment s runs Horner
+    over coefficients [s L, s L + L) at x (zero from n up), so that
+    part_s = sum_k c_{sL+k} X^k; for S > 1 the parts are made canonical,
+    y = X^L (`pow_words`) and a second Horner combines them, highest
+    segment first: sum_s part_s y^s. Then the product by one when
+    `plain_out`, and the value made canonical."""
+    n = len(coeffs)
+    L = split_length(n, segments)
+    parts = []
+    for s in range(segments):
+        acc = 0
+        for q in range(L):
+            i = s * L + L - 1 - q
+            acc = horner_step_words(acc, x, coeffs[i] if i < n else 0)
+        parts.append(acc)
+    acc = parts[0]
+    if segments > 1:
+        parts = [canon_words(p) for p in parts]
+        y = pow_words(x, L)
+        acc = parts[-1]
+        for s in range(segments - 2, -1, -1):
+            acc = horner_step_words(acc, y, parts[s])
+    if plain_out:
+        acc = mul_words(acc, 1)
+    return canon_words(acc)

@@ -8,9 +8,11 @@ The work is one Horner chain for every (point, blob) pair,
 
     acc[p, b] <- acc[p, b] x[p] 2^-256 + coeff[i, b]      (i = n-1 .. 0),
 
-which the CUDA kernel `csrc/rs_extend.cu` runs, one thread a pair
-(replacing the reference's XLA `eval_poly_batch`). CUDA tensors launch it,
-CPU tensors run `eval_poly_batch_plain`.
+which the CUDA kernel `csrc/rs_extend.cu` runs (replacing the reference's
+XLA `eval_poly_batch`), each pair's chain split into S segments of the
+coefficient axis on S lanes and combined by a second Horner in y = x^L
+(`rfield.split_eval_words` models it). CUDA tensors launch it, CPU tensors
+run `eval_poly_batch_plain`.
 
 Words, as in `ops/rfield.py`: coeffs (N_COEFF, BLOBS, 8), points (PTS, 8),
 the result (PTS, BLOBS, 8), all int32 tensors of canonical words -- the
@@ -24,17 +26,48 @@ evaluate-then-leave-Montgomery graph, the kernel's `plain_out` form: one
 more product, by 1, at the end of every chain.
 """
 
+import ctypes
+
 import torch
 
 from lighthouse_tpu_torch.ops import cuda_build
 from lighthouse_tpu_torch.ops import rfield as rf
 
 NW = rf.NW
+THREADS = 128  # csrc/rs_extend.cu: a block, 128 / S points of one blob
 
 
 def horner_products(n_coeff: int, pts: int, blobs: int) -> int:
     """Fr products of the chains: one a step, every (point, blob) pair."""
     return n_coeff * pts * blobs
+
+
+def split_products(n_coeff: int, pts: int, blobs: int, segments: int) -> int:
+    """Fr products the split adds to the function's `horner_products`, over
+    all lanes: every lane of a chain runs the squarings and products of
+    y = x^L and the S - 1 combine steps, and the S L steps of the segments
+    exceed n_coeff by the top segment's leading zeros."""
+    if segments == 1:
+        return 0
+    L = rf.split_length(n_coeff, segments)
+    per_lane = L.bit_length() - 1 + bin(L).count("1") - 1 + segments - 1
+    return pts * blobs * (segments * per_lane + segments * L - n_coeff)
+
+
+def plan(n_coeff: int, blobs: int, pts: int, device) -> dict:
+    """The kernel's launch plan on `device`, as its C entry makes it
+    (`lh_rs_extend_plan`): the segments S (4 or 8), the resident blocks an
+    SM that the CUDA runtime reports, the SMs, the blocks, the segment
+    length L and the waves."""
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device):
+        rc = cuda_build.library("rs_extend").lh_rs_extend_plan(
+            n_coeff, blobs, pts, ctypes.addressof(out), None)
+    if rc != 0:
+        raise RuntimeError(f"lh_rs_extend_plan: CUDA error {rc}")
+    S, per_sm, sms, _, blocks, L = list(out)
+    return {"segments": S, "threads": THREADS, "blocks_per_sm": per_sm, "sms": sms,
+            "blocks": blocks, "segment_length": L, "waves": blocks / (per_sm * sms)}
 
 
 def horner_bytes(n_coeff: int, pts: int, blobs: int) -> int:

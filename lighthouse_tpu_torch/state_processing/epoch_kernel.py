@@ -13,8 +13,15 @@ runs the spec's Python passes.
 `rewards` is the kernel's wrapper: CUDA tensors launch
 `csrc/epoch_rewards.cu` (the sums' reduction and the elementwise pass, two
 launches of one C entry, counted as one), CPU tensors run `rewards_plain`.
+The card has no 64-bit division, so the wrapper hands the kernel a magic
+number for each of the epoch's divisors (`divisor_magic`), and the kernel
+divides by a multiply-high and a floor correction (`floordiv_magic` models
+it in Python ints); the reward denominator active_increments * 64 is formed
+with int64 wrap (`reward_denominator`), as in the reference's jitted pass.
 """
 
+import ctypes
+import threading
 import time
 
 import numpy as np
@@ -36,6 +43,112 @@ EPOCH_CLAMP = 2**62
 
 # the host/device split of the last run_inactivity_and_rewards call, s
 LAST_EPOCH_STATS: dict = {}
+
+INT64_MIN = -(1 << 63)
+U64 = (1 << 64) - 1
+# csrc/epoch_rewards.cu: the words of its workspace (three sums, a
+# done-counter, three scalars, one spare, a table of 3 x 64 rewards), kept
+# a (device, stream) and left with its sums and counter at 0 by every call
+WORKSPACE_WORDS = 8 + 3 * 64
+_WORKSPACES: dict = {}
+_workspaces_lock = threading.Lock()
+
+
+def wrap64(v: int) -> int:
+    """v as an int64 tensor holds it: two's complement wrap."""
+    return ((v - INT64_MIN) & U64) + INT64_MIN
+
+
+def reward_denominator(active_increments: int) -> int:
+    """active_increments * WEIGHT_DENOMINATOR with int64 wrap, as the
+    reference's jitted pass forms it."""
+    return wrap64(active_increments * WEIGHT_DENOMINATOR)
+
+
+def divisor_magic(d: int) -> tuple:
+    """(m, v, sh1, sh2, neg) for a nonzero int64 divisor d: v = |d| and
+    Granlund and Montgomery's round-up magic for unsigned 64-bit dividends
+    (Hacker's Delight 10-8): with l = ceil(log2 v), m = floor(2^64 (2^l -
+    v) / v) + 1 < 2^64, sh1 = min(l, 1), sh2 = max(l - 1, 0)."""
+    if d == 0 or not INT64_MIN <= d <= -INT64_MIN - 1:
+        raise ValueError(f"divisor {d}: not a nonzero int64")
+    v = abs(d)
+    ell = (v - 1).bit_length()
+    m = (((1 << ell) - v) << 64) // v + 1
+    assert 0 < m <= U64
+    return m, v, min(ell, 1), max(ell - 1, 0), int(d < 0)
+
+
+def floordiv_magic(a: int, magic: tuple) -> int:
+    """The kernel's `floordiv` in Python ints: u = |a| as a uint64, t =
+    mulhi(m, u), q = (t + ((u - t) >> sh1)) >> sh2 (= u // v, asserted),
+    then q, or -q - (u != q v) where a and the divisor differ in sign,
+    wrapped to int64: floor(a / d) for every int64 a."""
+    m, v, sh1, sh2, neg = magic
+    assert INT64_MIN <= a <= -INT64_MIN - 1
+    u = -a if a < 0 else a
+    t = (m * u) >> 64
+    q = (t + ((u - t) >> sh1)) >> sh2
+    assert q * v <= u < (q + 1) * v, "the magic's quotient is not u // v"
+    if (a < 0) != bool(neg):
+        return wrap64(-q - int(u != q * v))
+    return wrap64(q)
+
+
+def magic_words(magic: tuple) -> list:
+    """A magic as the kernel's three int64 parameter words: m, v (each
+    wrapped) and sh1 | sh2 << 8 | neg << 16."""
+    m, v, sh1, sh2, neg = magic
+    return [wrap64(m), wrap64(v), sh1 | sh2 << 8 | neg << 16]
+
+
+def kernel_params(params) -> list:
+    """The kernel's 16 parameter words: the seven scalars of PARAMS, then
+    the magic words of the increment, of the reward denominator and of the
+    inactivity denominator. Raises on a divisor the pass cannot take."""
+    if len(params) != len(PARAMS):
+        raise ValueError(f"params: expected {len(PARAMS)} scalars, got {len(params)}")
+    scalars = [int(p) for p in params]
+    for name, v in zip(PARAMS, scalars):
+        if not INT64_MIN <= v <= -INT64_MIN - 1:
+            raise ValueError(f"params: {name} = {v} is not an int64")
+    increment, active_increments, denominator = scalars[1], scalars[2], scalars[6]
+    if increment <= 0 or active_increments <= 0 or denominator <= 0:
+        raise ValueError("params: increment, active_increments and the denominator must be > 0")
+    if reward_denominator(active_increments) == 0:
+        raise ValueError("params: active_increments * 64 wraps to 0 in int64")
+    words = list(scalars)
+    for d in (increment, reward_denominator(active_increments), denominator):
+        words += magic_words(divisor_magic(d))
+    return words
+
+
+def _workspace(dev) -> torch.Tensor:
+    """The kernel's zeroed workspace for `dev` and its current stream."""
+    key = (str(dev), torch.cuda.current_stream(dev).cuda_stream)
+    with _workspaces_lock:
+        ws = _WORKSPACES.get(key)
+        if ws is None:
+            ws = _WORKSPACES[key] = torch.zeros(WORKSPACE_WORDS, dtype=torch.int64, device=dev)
+    return ws
+
+
+def plan(n: int, device) -> dict:
+    """The kernel's grids at n validators with aligned arrays, as its C
+    entry makes them (`lh_epoch_rewards_plan`): the sums pass's validators
+    a thread (the elementwise pass takes one), the
+    resident blocks an SM of the sums pass and of the elementwise pass
+    that the CUDA runtime reports, the SMs, both grids and their waves."""
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device):
+        rc = cuda_build.library("epoch_rewards").lh_epoch_rewards_plan(
+            n, ctypes.addressof(out), None)
+    if rc != 0:
+        raise RuntimeError(f"lh_epoch_rewards_plan: CUDA error {rc}")
+    vec, sums_sm, rewards_sm, sms, sums_blocks, rewards_blocks = list(out)
+    return {"sums_validators_a_thread": vec, "threads": 256, "sums_blocks_per_sm": sums_sm,
+            "rewards_blocks_per_sm": rewards_sm, "sms": sms, "sums_blocks": sums_blocks,
+            "rewards_blocks": rewards_blocks, "rewards_waves": rewards_blocks / (rewards_sm * sms)}
 
 
 def rewards_bytes(n: int) -> int:
@@ -66,7 +179,7 @@ def rewards_plain(eff, prev_part, scores, balances, active_prev, slashed, eligib
         part = unslashed & (((prev_part >> flag_index) & 1) != 0)
         part_balance = max(increment, int(torch.where(part, eff, 0).sum()))
         part_increments = part_balance // increment
-        flag_reward = (base * weight * part_increments) // (active_increments * WEIGHT_DENOMINATOR)
+        flag_reward = (base * weight * part_increments) // reward_denominator(active_increments)
         if not leak:
             rewards = rewards + torch.where(eligible & part, flag_reward, 0)
         if flag_index != TIMELY_HEAD_FLAG_INDEX:
@@ -96,19 +209,14 @@ def rewards(eff, prev_part, scores, balances, active_prev, slashed, eligible, pa
     for name, tensor in (("active_prev", active_prev), ("slashed", slashed),
                          ("eligible", eligible)):
         cuda_build.check(tensor, name, (n,), dev, torch.bool)
-    if len(params) != len(PARAMS):
-        raise ValueError(f"params: expected {len(PARAMS)} scalars, got {len(params)}")
-    host_params = torch.tensor([int(p) for p in params], dtype=torch.int64)
-    if int(host_params[1]) <= 0 or int(host_params[2]) <= 0 or int(host_params[6]) <= 0:
-        raise ValueError("params: increment, active_increments and the denominator must be > 0")
+    host_params = torch.tensor(kernel_params(params), dtype=torch.int64)
     out_balances = torch.empty_like(balances)
     out_scores = torch.empty_like(scores)
     if n == 0:
         return out_balances, out_scores
-    sums = torch.empty(3, dtype=torch.int64, device=dev)
     cuda_build.launch("epoch_rewards", "lh_epoch_rewards", "epoch_rewards", eff, prev_part,
-                      scores, balances, active_prev, slashed, eligible, n, host_params, sums,
-                      out_balances, out_scores)
+                      scores, balances, active_prev, slashed, eligible, n, host_params,
+                      _workspace(dev), out_balances, out_scores)
     return out_balances, out_scores
 
 

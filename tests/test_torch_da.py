@@ -160,7 +160,9 @@ def test_extend_blobs_backends_agree(n_blobs):
     assert gpu == erasure.extend_blobs(blobs, GEO, backend="fake")
     assert gpu == rerasure.extend_blobs(blobs, RGEO, backend="ref")
     assert gpu[0] == [0] * (2 * N)
-    assert gpu_backend.LAST_EXTEND_STATS["lanes"] == max(2, 1 << (n_blobs - 1).bit_length())
+    # the kernel runs the live blobs alone; the bucket is the metric's label
+    assert gpu_backend.LAST_EXTEND_STATS["lanes"] == n_blobs
+    assert gpu_backend.LAST_EXTEND_STATS["bucket"] == max(2, 1 << (n_blobs - 1).bit_length())
     assert erasure.extend_blobs([], GEO, backend="gpu", device="cpu") == []
 
 

@@ -198,3 +198,121 @@ def test_epoch_state_refuses_a_sync_rotation():
     pspec = spec_from_reference_yaml(spec_to_config_yaml(mainnet_spec(ALTAIR_FORK_EPOCH=0)))
     with pytest.raises(ValueError, match="rotates the sync committees"):
         T.epoch_state(pspec, 8, 255)
+
+
+# ---------------------------------------- the kernel's division, modelled
+
+# the divisors the kernel divides by: the increment, the inactivity
+# denominator and the reward denominator, this last formed with int64 wrap
+# (active_increments * 64: 2**57 wraps to INT64_MIN, 2**57 + 5 below 0,
+# 2**58 + 3 to 192, 2**63 - 1 to -64)
+DIVISORS = [1, 2, 3, 63, 64, 65, 10**9, 2**31 - 1, 2**31 + 1, 2**62, 2**63 - 1] + [
+    epoch_kernel.reward_denominator(a) for a in (1, 114, 2**57, 2**57 + 5, 2**58 + 3, 2**63 - 1)]
+SEEDED_DIVIDENDS = [int(x) for x in np.random.default_rng(15).integers(
+    -2**63, 2**63 - 1, 48, dtype=np.int64, endpoint=True)]
+
+
+@pytest.mark.parametrize("d", DIVISORS)
+def test_divisor_magic_floors_like_int64(d):
+    """The host's magic and the kernel's multiply-high with its floor
+    correction (`floordiv_magic`, the quotient asserted exact) against
+    Python's and torch's `//`: 0, +-1, +-(|d| - 1), +-|d|, +-(|d| + 1)
+    (wrapped into int64), INT64_MIN, INT64_MAX and seeded int64 values."""
+    magic = epoch_kernel.divisor_magic(d)
+    v = abs(d)
+    dividends = [0, 1, -1, epoch_kernel.INT64_MIN, -epoch_kernel.INT64_MIN - 1] + [
+        epoch_kernel.wrap64(s * k) for k in (v - 1, v, v + 1) for s in (1, -1)] + SEEDED_DIVIDENDS
+    got = [epoch_kernel.floordiv_magic(a, magic) for a in dividends]
+    assert got == [a // d for a in dividends]
+    assert got == (torch.tensor(dividends, dtype=torch.int64) // d).tolist()
+
+
+def test_kernel_params_carry_the_magic_words():
+    params = (357, 10**9, 2**57 + 5, 0, 4, 16, 4 * 3 * 2**24)
+    words = epoch_kernel.kernel_params(params)
+    assert len(words) == 16 and words[:7] == list(params)
+    rd = epoch_kernel.reward_denominator(2**57 + 5)
+    for k, d in enumerate((10**9, rd, 4 * 3 * 2**24)):
+        m, v, shifts = words[7 + 3 * k: 10 + 3 * k]
+        want = epoch_kernel.divisor_magic(d)
+        assert (m & epoch_kernel.U64, v & epoch_kernel.U64) == want[:2]
+        assert (shifts & 0xff, shifts >> 8 & 0xff, shifts >> 16) == want[2:]
+    for bad in ((357, 0, 1, 0, 4, 16, 1), (357, 1, 2**58, 0, 4, 16, 1), (357, 1, 1, 0, 4, 16, -3)):
+        with pytest.raises(ValueError):
+            epoch_kernel.kernel_params(bad)
+
+
+def test_plain_pass_wraps_like_int64():
+    """rewards_plain on lanes whose products wrap, with a reward
+    denominator that wraps below zero, against the spec's formulas lane
+    by lane with every product, sum and quotient taken as int64."""
+    w = epoch_kernel.wrap64
+    rng = np.random.default_rng(16)
+    n = 24
+    eff = rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64, endpoint=True)
+    part = rng.integers(0, 256, n).astype(np.uint8)
+    scores = rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64, endpoint=True)
+    bal = rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64, endpoint=True)
+    active, slashed, eligible = (rng.random((3, n)) < np.array([[0.7], [0.2], [0.8]]))
+    for leak in (0, 1):
+        params = (2**40 + 7, 3, 2**57 + 5, leak, 2**62, 3, 65)
+        got = epoch_kernel.rewards(*(torch.from_numpy(a) for a in (
+            eff, part, scores, bal, active, slashed, eligible)), params)
+        rd = w((2**57 + 5) * 64)
+        unsl = active & ~slashed
+        sums = [w(sum(int(e) for e, u, p in zip(eff, unsl, part) if u and (p >> f) & 1))
+                for f in range(3)]
+        want_b, want_s = [], []
+        for i in range(n):
+            e, s0 = int(eff[i]), int(scores[i])
+            base = w(e // 3 * params[0])
+            tgt = bool(unsl[i] and (part[i] >> 1) & 1)
+            s = w(s0 - min(1, s0)) if tgt else w(s0 + params[4])
+            if not leak:
+                s = w(s - min(3, s))
+            if not eligible[i]:
+                s = s0
+            r = p = 0
+            for f, wt in enumerate((14, 26, 14)):
+                inf = bool(unsl[i] and (part[i] >> f) & 1)
+                if eligible[i] and inf and not leak:
+                    r = w(r + w(w(base * wt) * (max(3, sums[f]) // 3)) // rd)
+                if f != 2 and eligible[i] and not inf:
+                    p = w(p + w(base * wt) // 64)
+            if eligible[i] and not tgt:
+                p = w(p + w(e * s) // 65)
+            want_b.append(max(0, w(w(int(bal[i]) + r) - p)))
+            want_s.append(s)
+        assert got[0].tolist() == want_b and got[1].tolist() == want_s, leak
+
+
+# the reward denominators active_increments * 64 that wrap in int64: below
+# zero, to 192, to -64
+WRAPPING_ACTIVE = [2**57 + 5, 2**58 + 3, 2**63 - 1]
+
+
+@pytest.mark.parametrize("leak", [False, True], ids=["no_leak", "leak"])
+@pytest.mark.parametrize("active_increments", WRAPPING_ACTIVE)
+def test_plain_pass_wraps_like_the_reference_jitted_pass(active_increments, leak):
+    """rewards_plain against the reference's jitted `_kernel` on 600 seeded
+    lanes whose products, sums and reward denominator wrap in int64: the
+    shape and dtypes of test_rewards_pass_equals_reference's call, so its
+    compiled pass serves."""
+    import jax
+
+    rng = np.random.default_rng(17)
+    n = 600
+    eff, scores, bal = (rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64, endpoint=True)
+                        for _ in range(3))
+    part = rng.integers(0, 256, n).astype(np.uint8)
+    active, slashed, eligible = (rng.random((3, n)) < np.array([[0.7], [0.2], [0.8]]))
+    params = (2**40 + 7, 3, active_increments, int(leak), 2**62, 3, 65)
+    got = epoch_kernel.rewards(*(torch.from_numpy(a) for a in (
+        eff, part, scores, bal, active, slashed, eligible)), params)
+    with ref_kernel._x64_context(jax)(True):
+        want = ref_kernel._get_jitted()(
+            eff, part.astype(np.int64), scores, bal, active, slashed, eligible,
+            np.int64(params[0]), np.int64(params[1]), np.int64(params[2]), np.bool_(leak),
+            np.int64(params[4]), np.int64(params[5]), np.int64(params[6]))
+        want = [np.asarray(w) for w in want]
+    assert got[0].tolist() == want[0].tolist() and got[1].tolist() == want[1].tolist()

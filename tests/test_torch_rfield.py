@@ -8,10 +8,14 @@ integers: the port's `mul`, `add`, `sub`, `neg`, `to_mont` and `from_mont`
 against the reference's functions (one small jitted graph) on seeded
 values and edges (0, 1, r - 1, r - 2, 2^254, 2^255 - 19 mod r), exactly.
 The kernel's own word-level steps are modelled in Python integers
-(`rfield.mul_words`, `horner_step_words`, with their bounds asserted) and
-held against (a b 2^-256) mod r and against the plain Horner, all-ones
-words and the largest lazy accumulators among the inputs; its constants
-are read out of `csrc/rs_extend.cu`. Inputs come from a numpy seed.
+(`rfield.mul_words`, its PTX carry chains flag by flag, and
+`horner_step_words`, with their bounds asserted) and held against
+(a b 2^-256) mod r, the product's closed form and the plain Horner,
+all-ones words and the largest lazy accumulators among the inputs; the
+kernel's split chain (`split_eval_words`: segments, y = x^L, the combine)
+against the unsplit chain, the plain version and host Horner at n_coeff
+from 1 to 4,097; its constants are read out of `csrc/rs_extend.cu`.
+Inputs come from a numpy seed.
 """
 
 import functools
@@ -148,11 +152,23 @@ LAZY = [0, 1, R - 1, R, 2 * R - 1, ALL_ONES, ALL_ONES - (1 << 128)] + _seeded(24
 POINTS = [0, 1, R - 1, R - 2, int("ffffffff" * 7 + "00000000", 16) % R] + _seeded(12, 4)
 
 
+NPRIME = -pow(R, -1, rf.MONT_R) % rf.MONT_R
+
+
+def _mont_value(a, b):
+    """The CIOS product's closed form: (a b + M r) / 2^256 with M = -a b
+    r^-1 mod 2^256, the one M < 2^256 that zeroes the low half, which the
+    rows' m_i make up word by word."""
+    t = a * b
+    return (t + (t * NPRIME & (rf.MONT_R - 1)) * R) >> 256
+
+
 @pytest.mark.parametrize("a", LAZY, ids=range(len(LAZY)))
 def test_word_product_model(a):
     for b in POINTS:
         t = rf.mul_words(a, b)
-        assert t < 2 * R and t % R == a * b * rf.R_INV % R
+        assert t < b + R and t % R == a * b * rf.R_INV % R
+        assert t == _mont_value(a, b)
 
 
 def test_horner_step_model_keeps_the_accumulator_lazy():
@@ -192,3 +208,77 @@ def test_plain_horner_matches_the_word_model():
 def test_bound_counts():
     assert rs_extend.horner_products(4096, 8192, 6) == 201_326_592
     assert rs_extend.horner_bytes(1, 1, 1) == 96
+
+
+# ------------------------------- the carry chains and the split chain
+
+
+def test_canonical_subtraction_model():
+    assert [rf.canon_words(v) for v in (0, R - 1, R, 2 * R - 1)] == [0, R - 1, 0, R - 1]
+
+
+def test_pow_words_by_squarings():
+    for L in (1, 2, 3, 7, 512, 513, 1024):
+        for X in (0, 1, R - 1, 5):
+            x = X * rf.MONT_R % R
+            assert rf.pow_words(x, L) == pow(X, L, R) * rf.MONT_R % R
+
+
+# points 0, 1 and r - 1, as Montgomery words
+EDGE_POINTS = [int(w) for w in rf.words_to_ints(rf.mont_words([0, 1, R - 1]))]
+
+
+def _host_horner(coeffs, x_mont):
+    X = x_mont * rf.R_INV % R
+    return sum(c * pow(X, i, R) for i, c in enumerate(coeffs)) % R
+
+
+def _plain(coeffs, plain_out):
+    """eval_poly_batch_plain on one blob at the three edge points."""
+    cw = torch.from_numpy(rf.ints_to_words(coeffs).reshape(len(coeffs), 1, rf.NW))
+    pw = torch.from_numpy(rf.ints_to_words(EDGE_POINTS))
+    return rf.words_to_ints(rs_extend.eval_poly_batch_plain(cw, pw, plain_out).numpy())
+
+
+SPLIT_CASES = [(S, n) for S in (1, 4, 8) for n in sorted({1, 2, 3, max(1, S - 1), S, 33})]
+
+
+@pytest.mark.parametrize("segments,n", SPLIT_CASES, ids=[f"S{S}-n{n}" for S, n in SPLIT_CASES])
+def test_split_chain_matches_the_unsplit_chain(segments, n):
+    """The kernel's split chain in its word model (the carry-chain product
+    throughout) equals the unsplit chain `eval_words`, the plain version
+    and host Horner, coefficients all r - 1, at points 0, 1 and r - 1,
+    either output form; n below S leaves segments of zeros."""
+    coeffs = [R - 1] * n
+    for plain_out in (False, True):
+        got = [rf.split_eval_words(coeffs, x, segments, plain_out) for x in EDGE_POINTS]
+        assert got == [rf.eval_words(coeffs, x, plain_out) for x in EDGE_POINTS]
+        assert got == _plain(coeffs, plain_out)
+        if not plain_out:
+            assert got == [_host_horner(coeffs, x) for x in EDGE_POINTS]
+
+
+@pytest.mark.parametrize("n", [4095, 4096, 4097])
+def test_split_chain_at_a_blob_length(n, monkeypatch):
+    """At n = 4,095, 4,096 and 4,097 (S divides only 4,096) the split's
+    segments, y = x^L and combine equal the unsplit chain and host Horner,
+    coefficients all r - 1 and seeded. The chains take the product in its
+    closed form here (equal to the carry chains: test_word_product_model),
+    for speed. (The plain version takes some 3 s a call at this length on
+    one core: it is held against the same chains at the short lengths
+    above.)"""
+    monkeypatch.setattr(rf, "mul_words", _mont_value)
+    for coeffs in ([R - 1] * n, _seeded(n, 11)):
+        want = [rf.eval_words(coeffs, x) for x in EDGE_POINTS]
+        assert want == [_host_horner(coeffs, x) for x in EDGE_POINTS]
+        for S in (4, 8):
+            assert [rf.split_eval_words(coeffs, x, S) for x in EDGE_POINTS] == want
+
+
+def test_split_counts():
+    # 8 segments of 512: 9 squarings and 7 combine steps a lane
+    assert rs_extend.split_products(4096, 8192, 6, 8) == 8192 * 6 * 8 * 16
+    # 4,097 = 8 x 513 - 7: 9 squarings, 1 product, 7 steps a lane; 7 zero steps
+    assert rs_extend.split_products(4097, 1, 1, 8) == 8 * 17 + 7
+    assert rs_extend.split_products(4096, 8192, 6, 1) == 0
+    assert [rf.split_length(n, 8) for n in (1, 7, 8, 9, 4096, 4097)] == [1, 1, 1, 2, 512, 513]

@@ -221,6 +221,26 @@ non-zero without its result line:
     plain version run a chunk of rows at a time; the kernel's ms at both
     batches beside their byte bounds (the columns each touched row needs;
     whole rows as bound_rows_ms), the glue's and the peak memory;
+ 7k. block: BASELINE config #3 -- a mainnet-spec altair chain of 262,144
+    validators (testing.chain_keypairs / chain_harness), the block after a
+    skipped slot (128 attestations, the 512-seat sync aggregate, proposal
+    and RANDAO: 131 sets, 16,898 keys) through Harness.import_block with
+    VERIFY_BULK: one device call on the pubkey cache's table, the verdict
+    and post-state root, the split (copy, process_slots, per-block host,
+    the batch: marshalling and device, state root), launches, lanes and
+    key padding; every kernel step by step on the sets that import
+    verified against its plain version; block_forged: the block with
+    attestation 9 carrying another committee's aggregate, refused by
+    VERIFY_BULK (one call, the state unchanged) and by VERIFY_INDIVIDUAL
+    at that attestation (12 calls);
+ 7l. replay: BASELINE config #5 (bench_replay.py's loop) -- 32 slots over
+    the first epoch boundary at 65,536 validators, built unmeasured with
+    NO_VERIFICATION, imported by two fresh replayers: VERIFY_BULK per block
+    (32 device calls) and Harness.import_segment (one collector, one call
+    of 608 sets before anything is committed); slots/s, the split (the
+    boundary block's per-block host time beside the median), each block's
+    verdict, equal final roots; every kernel at the segment's shapes
+    against its plain version;
  8. the tensor-core probe (lighthouse_tpu_torch.ops.mma_probe), int8 and
     bf16, exact against the probe's numpy check and the plain version,
     kernel and library call timed the same way (and each once more in one
@@ -230,7 +250,8 @@ non-zero without its result line:
     its shapes, with its launches, and a "da" record at the cell verify's;
     every kernel its launches in phase 7g's program run; epoch_rewards its
     launches in 7i's process_epoch, slasher_update in 7j's two full-width
-    batches), then {"ok": true,
+    batches; a "block" and a "segment" record for the kernels of 7k and
+    7l, with their launches there), then {"ok": true,
     "device": {...}} as the last line.
 
 The kernel records also go to chiprun_out/chip_smoke_records.json.
@@ -315,6 +336,23 @@ SLASHER_V = 1_048_576
 SLASHER_H = 4_096
 SLOT_ATTESTERS = 32_768
 PLANTED = 64
+# block processing (BASELINE config #3): a mainnet-spec altair chain cut
+# from ~1.05 M validators to 262,144 (64 committees a slot of 128, where
+# mainnet's hold ~512: the host's deep state copies and first state root);
+# the block after a skipped slot: 2 x 64 attestations, the 512-seat sync
+# aggregate, the proposal and the RANDAO reveal; the forged block's bad
+# attestation
+BLOCK_V = 262_144
+BLOCK_COMMITTEES = 64
+BLOCK_SETS = 2 * BLOCK_COMMITTEES + 3
+BLOCK_KEYS = 2 * BLOCK_COMMITTEES * 128 + 512 + 2
+FORGED_AT = 9
+# the 32-slot replay (BASELINE config #5), cut to 65,536 validators (16
+# committees a slot): the build signs an aggregate a committee and copies
+# the state a block
+REPLAY_V = 65_536
+REPLAY_SLOTS = 32
+REPLAY_COMMITTEES = 16
 N_COMMITTEES = 64
 COMMITTEE = 480
 N_FLAT = 1_024
@@ -381,6 +419,9 @@ def main() -> int:
     from lighthouse_tpu_torch.state_processing.per_epoch import process_epoch
     from lighthouse_tpu_torch.state_processing.per_slot import process_slots
     from lighthouse_tpu_torch.types.spec import mainnet_spec
+    from lighthouse_tpu_torch.ssz.cached_hash import cached_state_root, carry_tree_cache
+    from lighthouse_tpu_torch.state_processing.per_block import (
+        BlockProcessingError, BlockSignatureStrategy, SignatureCollector)
 
     os.makedirs(OUT, exist_ok=True)
     dev = torch.device("cuda")
@@ -493,7 +534,7 @@ def main() -> int:
         ops/batch_verify, step by step)."""
         m = gpu_backend._marshal(sets)
         bits = gpu_backend._scalar_bits(gpu_backend._rlc_scalars(m.s_bucket, seed))
-        pk_words = table.gather(m.indices) if m.table is not None else m.pubkeys
+        pk_words = m.table.gather(m.indices) if m.table is not None else m.pubkeys
         km = bv._mask(m.key_mask, dev)
         sm = bv._mask(m.set_mask, dev)
         mags, negs = bv._digits(bits, dev)
@@ -598,7 +639,11 @@ def main() -> int:
         assert bool(final_exp.fold_final_exp(kf)[1]), f"{label}: stage-by-stage verdict is not 1"
 
     ladder_inputs = {}
-    for label, sets, seed in (("grouped", slot, 3), ("flat", flat, 4)):
+
+    def hold_batch(label, sets, seed):
+        """Every kernel of one verify_signature_sets batch, step by step on
+        the inputs the main path gives it, each held against its plain
+        version into records[label]."""
         m, km, sm, mags, negs, pk, sig, bits, pk_words = stage_inputs(sets, seed)
         S = sm.numel()
         K = m.k_bucket
@@ -670,6 +715,9 @@ def main() -> int:
             lambda: final_exp.fold_final_exp_plain(f), nb(f))
         value, ok = final_exp.fold_final_exp(f)
         assert bool(ok), f"{label}: stage-by-stage verdict is not 1"
+
+    for label, sets, seed in (("grouped", slot, 3), ("flat", flat, 4)):
+        hold_batch(label, sets, seed)
 
     # K1's window body on an edge batch: 128 live and 128 identity lanes (the
     # padding) of the slot's ladder inputs, digits by lane mod 8 (zero; +8;
@@ -2556,6 +2604,232 @@ def main() -> int:
     del fmn, fmx, slot_l, epoch_l, g_slot, g_epoch
     torch.cuda.empty_cache()
 
+    # ------------------------------------ 7k. block processing (block)
+    # BASELINE config #3 at mainnet width: mainnet spec, altair from
+    # genesis, BLOCK_V validators (64 committees a slot of 128), secret key
+    # i + 1 (testing.chain_keypairs), the pubkey cache filled from the
+    # keypairs' points, its table on the card; slot 1 is skipped, so the
+    # block at slot 2 carries the 128 attestations of slots 0 and 1, the
+    # 512-seat sync aggregate, the proposal and the RANDAO reveal: 131 sets
+    # and 16,898 keys (16,896 in the committees and the sync aggregate) in
+    # one verify_signature_sets call on "gpu", through the table. Built
+    # unmeasured; measured: Harness.import_block with VERIFY_BULK into a
+    # collector of the script's (seeded slot + 1, as the harness's own),
+    # its split, its launches and its batch's lanes; the sets it verified
+    # are then held kernel by kernel
+    t_phase = time.perf_counter()
+    bk = {}
+    bspec = mainnet_spec(ALTAIR_FORK_EPOCH=0)
+    t0 = time.perf_counter()
+    chain_keys = T.chain_keypairs(BLOCK_V)
+    t1 = time.perf_counter()
+    bh = T.chain_harness(bspec, chain_keys, backend="gpu", device="cuda")
+    t2 = time.perf_counter()
+    block_atts = bh.make_attestations(bh.state, 0)
+    skipped = bh.state.copy()
+    carry_tree_cache(skipped, bh.state)
+    block_atts += bh.make_attestations(process_slots(skipped, 1, bspec, device="cuda"), 1)
+    del skipped
+    t3 = time.perf_counter()
+    block = bh.produce_block(2, block_atts)
+    t4 = time.perf_counter()
+    # the forged block: attestation FORGED_AT carries another committee's
+    # aggregate, in a block the proposer signed whole (its state root too)
+    forged_atts = list(block_atts)
+    forged_atts[FORGED_AT] = forged_atts[FORGED_AT].copy()
+    forged_atts[FORGED_AT].signature = block_atts[FORGED_AT + 1].signature
+    forged_block = bh.produce_block(2, forged_atts)
+    t5 = time.perf_counter()
+    body = block.message.body
+    n_keys = 2 + sum(sum(a.aggregation_bits) for a in body.attestations) + sum(
+        body.sync_aggregate.sync_committee_bits)
+    bk["build"] = {"validators": BLOCK_V, "keys_s": t1 - t0, "genesis_and_cache_s": t2 - t1,
+                   "attestations_s": t3 - t2, "produce_s": t4 - t3, "forged_produce_s": t5 - t4,
+                   "attestations": len(body.attestations), "keys": n_keys}
+    assert len(body.attestations) == 2 * BLOCK_COMMITTEES and n_keys == BLOCK_KEYS, bk["build"]
+    pre_state = bh.state
+    gpu_backend._MSG_CACHE.clear()  # the block's messages hashed in its import
+    calls0 = dict(gpu_backend.CALL_COUNTS)
+    cuda_build.reset_launches()
+    block_coll = SignatureCollector(BlockSignatureStrategy.VERIFY_BULK, seed=3, consumer="bench",
+                                    slot=2, device="cuda")
+    t0 = time.perf_counter()
+    post_root = bh.import_block(block, collector=block_coll)
+    wall = time.perf_counter() - t0
+    block_launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+    calls = {k: gpu_backend.CALL_COUNTS[k] - calls0[k] for k in calls0}
+    host = dict(gpu_backend.LAST_HOST_STATS)
+    # copy_s is the state.copy() (with its tree cache), per_block_s the
+    # host work, verify_s the one batch: marshalling and device
+    split = dict(bh.last_import_stats)
+    split["marshal_s"] = host["host_ms"] / 1e3
+    split["device_s"] = host["device_ms"] / 1e3
+    bk["block"] = {
+        "validators": BLOCK_V, "sets": host["n_sets"], "keys": n_keys,
+        "verdict": post_root == bytes(block.message.state_root), "post_root": post_root.hex(),
+        "wall_s": wall, "split": split, "host_stats": host, "device_calls": calls,
+        "indexed": host["indexed_path"], "lanes": host["s_bucket"], "key_lanes": host["s_bucket"] * host["k_bucket"],
+        "k_bucket": host["k_bucket"], "key_padding": 1 - n_keys / (host["s_bucket"] * host["k_bucket"]),
+        "launches": block_launches}
+    print(smi, flush=True)
+    emit("block", **bk["block"])
+    assert bk["block"]["verdict"], "block: the post-state root differs from the block's"
+    assert host["n_sets"] == BLOCK_SETS and host["indexed_path"] and not host["grouped"], host
+    assert calls == {"batch": 1, "individual": 0}, calls
+    missing = [k for k in BATCH_KERNELS if not block_launches.get(k)]
+    assert not missing, f"block: the path launched no {missing}"
+    # the sets the import verified, through every kernel step by step
+    # against its plain version
+    assert len(block_coll.sets) == BLOCK_SETS and sum(len(s.pubkeys) for s in block_coll.sets) == n_keys
+    hold_batch("block", block_coll.sets, 41)
+    records["block_launches"] = block_launches
+
+    # ------------------------------ the forged block (block_forged)
+    # VERIFY_BULK raises and leaves the harness's state as it was;
+    # VERIFY_INDIVIDUAL raises at the forged attestation: the proposal, the
+    # RANDAO reveal and attestations 0 .. FORGED_AT, one device call each
+    bh.state = pre_state
+    root_before = cached_state_root(pre_state)
+    fg = {"forged_attestation": FORGED_AT}
+    for strategy in (BlockSignatureStrategy.VERIFY_BULK, BlockSignatureStrategy.VERIFY_INDIVIDUAL):
+        calls0 = dict(gpu_backend.CALL_COUNTS)
+        t0 = time.perf_counter()
+        try:
+            bh.import_block(forged_block, strategy=strategy, consumer="bench")
+            raised = None
+        except BlockProcessingError as e:
+            raised = str(e)
+        fg[strategy.value] = {
+            "raised": raised, "wall_s": time.perf_counter() - t0,
+            "device_calls": {k: gpu_backend.CALL_COUNTS[k] - calls0[k] for k in calls0},
+            "state_unchanged": bh.state is pre_state and cached_state_root(bh.state) == root_before}
+    print(smi, flush=True)
+    emit("block_forged", **fg)
+    bulk, indiv = fg["verify_bulk"], fg["verify_individual"]
+    assert bulk["raised"] and bulk["state_unchanged"] and bulk["device_calls"]["batch"] == 1, bulk
+    assert indiv["raised"] and indiv["state_unchanged"] and \
+        indiv["device_calls"]["batch"] == FORGED_AT + 3, indiv
+    bk["forged"] = fg
+    bk["phase_s"] = time.perf_counter() - t_phase
+    records["block_phase"] = bk
+    del bh, pre_state, block_coll
+
+    # -------------------------- 7l. a 32-slot replay (replay, config #5)
+    # lighthouse_tpu/bench_replay.py's loop on the port: 32 slots from
+    # genesis across the first epoch boundary at REPLAY_V validators (16
+    # committees a slot of 128; the first REPLAY_V of the block's keys);
+    # every block carries the previous slot's 16 attestations, the sync
+    # aggregate, the proposal and the RANDAO reveal: 19 sets, 2,562 keys.
+    # Built unmeasured with NO_VERIFICATION (each block's post-state the
+    # one production computed its root on); then replayed by two fresh
+    # replayers: import_block with VERIFY_BULK per block (32 device calls)
+    # and Harness.import_segment, one collector and one finish() before
+    # anything is committed (one device call of 608 sets)
+    t_phase = time.perf_counter()
+    rp = {}
+    rkeys = chain_keys[:REPLAY_V]
+    t0 = time.perf_counter()
+    producer = T.chain_harness(bspec, rkeys, backend="gpu", device="cuda")
+    genesis = producer.state.copy()
+    producer.pending_attestations = producer.make_attestations(producer.state, 0)
+    blocks = [producer.advance_slot_with_block(s, strategy=BlockSignatureStrategy.NO_VERIFICATION)
+              for s in range(1, REPLAY_SLOTS + 1)]
+    producer_root = cached_state_root(producer.state)
+    rp["build_s"] = time.perf_counter() - t0
+    per_block_sets = [3 + len(b.message.body.attestations) for b in blocks]
+    assert per_block_sets == [3 + REPLAY_COMMITTEES] * REPLAY_SLOTS, per_block_sets
+
+    def replayer():
+        return T.chain_harness(bspec, rkeys, backend="gpu", device="cuda", genesis=genesis)
+
+    r1 = replayer()
+    gpu_backend._MSG_CACHE.clear()
+    calls0 = dict(gpu_backend.CALL_COUNTS)
+    cuda_build.reset_launches()
+    splits, accepted1, n_sets, n_keys_r = [], [], 0, 0
+    t0 = time.perf_counter()
+    for b in blocks:
+        accepted1.append(r1.import_block(b, consumer="bench") == bytes(b.message.state_root))
+        host = dict(gpu_backend.LAST_HOST_STATS)
+        splits.append(dict(r1.last_import_stats, marshal_s=host["host_ms"] / 1e3,
+                           device_s=host["device_ms"] / 1e3, lanes=host["s_bucket"],
+                           k_bucket=host["k_bucket"]))
+        n_sets += host["n_sets"]
+    wall1 = time.perf_counter() - t0
+    per_block_launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+    calls1 = {k: gpu_backend.CALL_COUNTS[k] - calls0[k] for k in calls0}
+    for b in blocks:
+        body = b.message.body
+        n_keys_r += 2 + sum(sum(a.aggregation_bits) for a in body.attestations) + sum(
+            body.sync_aggregate.sync_committee_bits)
+    root1 = cached_state_root(r1.state)
+    del r1
+
+    r2 = replayer()
+    gpu_backend._MSG_CACHE.clear()
+    calls0 = dict(gpu_backend.CALL_COUNTS)
+    cuda_build.reset_launches()
+    segment = SignatureCollector(BlockSignatureStrategy.VERIFY_BULK, seed=51, consumer="bench",
+                                 device="cuda")
+    t0 = time.perf_counter()
+    roots2 = r2.import_segment(blocks, collector=segment)
+    wall2 = time.perf_counter() - t0
+    accepted2 = [r == bytes(b.message.state_root) for r, b in zip(roots2, blocks)]
+    seg_stats = r2.last_import_stats
+    seg_host = dict(gpu_backend.LAST_HOST_STATS)
+    segment_launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+    calls2 = {k: gpu_backend.CALL_COUNTS[k] - calls0[k] for k in calls0}
+    root2 = cached_state_root(r2.state)
+
+    def med(key):
+        return statistics.median(s[key] for s in splits)
+
+    # the block at slot 32 crosses into epoch 1 and carries slot 31's
+    # attestations, of the previous epoch
+    boundary = splits[REPLAY_SLOTS - 1]
+    rp.update({
+        "validators": REPLAY_V, "slots": REPLAY_SLOTS, "sets": n_sets, "keys": n_keys_r,
+        "accepted": {"per_block": sum(accepted1), "segment": sum(accepted2)},
+        "every_block_accepted": len(accepted1) == len(accepted2) == REPLAY_SLOTS
+        and all(accepted1) and all(accepted2) and r2.state.slot == REPLAY_SLOTS,
+        "roots_equal": root1 == root2 == producer_root,
+        "final_root": producer_root.hex(),
+        "per_block": {"wall_s": wall1, "slots_per_s": REPLAY_SLOTS / wall1, "device_calls": calls1,
+                      "split_median": {k: med(k) for k in ("copy_s", "process_slots_s", "per_block_s",
+                                                           "verify_s", "state_root_s", "marshal_s",
+                                                           "device_s")},
+                      "boundary_per_block_s": boundary["per_block_s"],
+                      "lanes": splits[0]["lanes"], "k_bucket": splits[0]["k_bucket"],
+                      "launches": per_block_launches},
+        "segment": {"wall_s": wall2, "slots_per_s": REPLAY_SLOTS / wall2, "device_calls": calls2,
+                    "copy_s": seg_stats["copy_s"],
+                    "imports_s": wall2 - seg_stats["copy_s"] - seg_stats["verify_s"],
+                    "finish_s": seg_stats["verify_s"],
+                    "per_block_s_median": statistics.median(x["per_block_s"] for x in seg_stats["blocks"]),
+                    "boundary_per_block_s": seg_stats["blocks"][REPLAY_SLOTS - 1]["per_block_s"],
+                    "sets": len(segment.sets), "keys": sum(len(s.pubkeys) for s in segment.sets),
+                    "marshal_s": seg_host["host_ms"] / 1e3, "device_s": seg_host["device_ms"] / 1e3,
+                    "lanes": seg_host["s_bucket"], "k_bucket": seg_host["k_bucket"],
+                    "launches": segment_launches},
+        "epoch_boundary": {"slot": REPLAY_SLOTS, "process_slots_s": boundary["process_slots_s"],
+                           "device": "cuda"},
+    })
+    print(smi, flush=True)
+    emit("replay", **rp)
+    assert rp["every_block_accepted"], rp["accepted"]
+    assert rp["roots_equal"], (root1.hex(), root2.hex(), producer_root.hex())
+    assert n_sets == len(segment.sets) == REPLAY_SLOTS * (3 + REPLAY_COMMITTEES), (n_sets, len(segment.sets))
+    assert calls1 == {"batch": REPLAY_SLOTS, "individual": 0}, calls1
+    assert calls2 == {"batch": 1, "individual": 0}, calls2
+    for lbl, launches in (("per_block", per_block_launches), ("segment", segment_launches)):
+        missing = [k for k in BATCH_KERNELS if not launches.get(k)]
+        assert not missing, f"replay {lbl}: the path launched no {missing}"
+    hold_batch("segment", segment.sets, 52)
+    rp["phase_s"] = time.perf_counter() - t_phase
+    records["replay_phase"] = rp
+    records["replay_launches"] = {"per_block": per_block_launches, "segment": segment_launches}
+    del r2, producer, blocks, segment, genesis, chain_keys
+
     # ------------------------------------------- 8. tensor-core probe
     probe = {form: mma_probe.probe(form, dev) for form in mma_probe.FORMS}
     probe_launches = {}
@@ -2697,6 +2971,13 @@ def main() -> int:
                 "launches_variable_msm": kzg_launches["variable"].get(name, 0)}
             for extra in kzg_extra.get(name, ()):
                 entry["kzg"][extra] = pick(records["kzg"][extra])
+        for label, launches_at in (("block", records["block_launches"]),
+                                   ("segment", records["replay_launches"]["segment"])):
+            if name in records[label]:  # at the block's and the replay segment's shapes
+                entry[label] = pick(records[label][name]) | {"launches": launches_at.get(name, 0)}
+                if label == "segment":
+                    entry[label]["launches_per_block_replay"] = \
+                        records["replay_launches"]["per_block"].get(name, 0)
         if name in records["da"] and name != "rs_extend":  # at the cell verify's shapes
             entry["da"] = pick(records["da"][name]) | {
                 "launches": da_launches["verify"].get(name, 0),

@@ -396,6 +396,8 @@ def _record_stats(n_sets, m, t_start, t_subgroup, t_marshal, t_end, individual) 
                 "indexed_path": m.table is not None,
                 "grouped": bool(m.grouped),
                 "n_groups": m.n_groups,
+                "s_bucket": m.s_bucket,
+                "k_bucket": m.k_bucket,
                 "subgroup_ms": (t_subgroup - t_start) * 1e3,
                 "points_ms": m.timings["points_ms"],
                 "pack_ms": m.timings["pack_ms"],

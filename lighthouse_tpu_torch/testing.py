@@ -1,5 +1,5 @@
-"""Signature-set and Merkle-query generators for the port's tests and its
-chip smoke run.
+"""Signature-set, chain and Merkle-query generators for the port's tests
+and its chip smoke run.
 
 Large batches use the chained-addition form of `lighthouse_tpu/testing.py`
 (`fast_sequential`): secret keys are small consecutive integers and every
@@ -12,8 +12,10 @@ import hashlib
 
 import numpy as np
 
-from lighthouse_tpu_torch.bls.api import PublicKey, Signature, SignatureSet
+from lighthouse_tpu_torch.bls.api import Keypair, PublicKey, SecretKey, Signature, SignatureSet
 from lighthouse_tpu_torch.bls.gpu_backend import _msg_affine
+from lighthouse_tpu_torch.bls.point_serde import g1_compress
+from lighthouse_tpu_torch.crypto.constants import P, R
 from lighthouse_tpu_torch.crypto.ref_curve import G1 as RG1
 from lighthouse_tpu_torch.crypto.ref_curve import G2 as RG2
 
@@ -73,6 +75,92 @@ def forge(sets, i: int) -> list:
     s = sets[i]
     bad = SignatureSet(Signature(RG2.add(s.signature.point, _h(s.message))), s.pubkeys, s.message)
     return sets[:i] + [bad] + sets[i + 1 :]
+
+
+def make_aggregate_set_batch(n_sets: int, n_keys: int, seed: int = 0, keys_per_set=None) -> list:
+    """Aggregate-signature sets (`lighthouse_tpu/testing.py:64`): each set
+    is ONE aggregate signature over one distinct message by `n_keys` (or,
+    with `keys_per_set`, its own count of) distinct keys, assigned
+    sequentially across sets (validators 0, 1, ..., secret key = index + 1,
+    `validator_pubkeys`). Set j, whose keys start at validator base_j, has
+    the aggregate secret K_j * base_j + K_j (K_j + 1) / 2: one G2
+    multiplication a set.
+
+    BASELINE config #2 is 64 sets of 512 keys; config #3 the ragged
+    `make_block_sets_batch`."""
+    if keys_per_set is None:
+        keys_per_set = [n_keys] * n_sets
+    pubkeys = validator_pubkeys(sum(keys_per_set))
+    sets, base = [], 0
+    for j, k in enumerate(keys_per_set):
+        msg = message("aggregate", j, seed)
+        sig = RG2.mul_scalar(_h(msg), (k * base + k * (k + 1) // 2) % R)
+        sets.append(SignatureSet(Signature(sig), pubkeys[base:base + k], msg))
+        base += k
+    return sets
+
+
+def make_block_sets_batch(seed: int = 0, n_attestations: int = 128, committee_size: int = 256) -> list:
+    """BASELINE config #3's shape (`lighthouse_tpu/testing.py:108`): every
+    set of one full block as BlockSignatureVerifier collects them --
+    proposal and RANDAO (one key each), `n_attestations` committee
+    aggregates, and two exits."""
+    keys = [1, 1] + [committee_size] * n_attestations + [1, 1]
+    return make_aggregate_set_batch(0, 0, seed=seed, keys_per_set=keys)
+
+
+# ---------------------------------------------------------------- chains
+
+
+def _normalize_g1(points) -> list:
+    """Jacobian G1 points (none the identity) -> (x, y, 1), one field
+    inversion for all (Montgomery's trick)."""
+    prefix, acc = [], 1
+    for p in points:
+        prefix.append(acc)
+        acc = acc * p[2] % P
+    inv = pow(acc, P - 2, P)
+    out = [None] * len(points)
+    for i in range(len(points) - 1, -1, -1):
+        x, y, z = points[i]
+        zinv = inv * prefix[i] % P
+        inv = inv * z % P
+        zinv2 = zinv * zinv % P
+        out[i] = (x * zinv2 % P, y * zinv2 * zinv % P, 1)
+    return out
+
+
+def chain_keypairs(n: int) -> list:
+    """Keypairs of validators 0..n-1, validator i with secret key i + 1,
+    the public keys from chained additions (`validator_pubkeys`) in affine
+    form with their compressed bytes: a mainnet-sized registry without a
+    scalar multiplication or a decompression a key."""
+    out = []
+    for i, pt in enumerate(_normalize_g1([p.point for p in validator_pubkeys(n)])):
+        kp = Keypair.__new__(Keypair)
+        kp.sk = SecretKey(i + 1)
+        kp.pk = PublicKey(pt, g1_compress(pt))
+        out.append(kp)
+    return out
+
+
+def chain_harness(spec, keypairs, backend="gpu", device="cuda", genesis=None):
+    """The port's `Harness` on `keypairs` (`chain_keypairs`) at genesis,
+    its `PubkeyCache` filled from the points the keypairs hold -- the
+    entries `import_new` would decompress, without the decompressions.
+    `genesis`, a genesis state of these keys, is copied rather than built
+    again."""
+    from lighthouse_tpu_torch.harness import Harness
+    from lighthouse_tpu_torch.state_processing.genesis import interop_genesis_state
+    from lighthouse_tpu_torch.state_processing.pubkey_cache import PubkeyCache
+
+    if genesis is None:
+        state = interop_genesis_state([kp.pk.to_bytes() for kp in keypairs], 0, spec)
+    else:
+        state = genesis.copy()
+    cache = PubkeyCache(device=device)
+    cache.import_new(state, decoded=[PublicKey(kp.pk.point, kp.pk.to_bytes()) for kp in keypairs])
+    return Harness.from_genesis(spec, keypairs, state, cache, backend=backend, device=device)
 
 
 def proof_queries(n: int, depth: int) -> list:

@@ -72,6 +72,47 @@ def test_no_environment_knobs(path):
             assert node.attr not in ("environ", "getenv"), _rel(path)
 
 
+# the block plane: its modules are in both scans above
+BLOCK_MODULES = [
+    "lighthouse_tpu_torch/harness.py",
+    "lighthouse_tpu_torch/eth1/deposit_tree.py",
+    "lighthouse_tpu_torch/state_processing/genesis.py",
+    "lighthouse_tpu_torch/state_processing/per_block.py",
+    "lighthouse_tpu_torch/state_processing/pubkey_cache.py",
+    "lighthouse_tpu_torch/state_processing/signature_sets.py",
+]
+
+
+def test_scans_cover_the_block_plane():
+    assert set(BLOCK_MODULES) <= {_rel(p) for p in SOURCES}
+
+
+def _block_entry_points():
+    from lighthouse_tpu_torch.harness import Harness
+    from lighthouse_tpu_torch.state_processing import genesis, per_block, pubkey_cache
+
+    return {
+        "Harness": Harness.__init__, "Harness.from_genesis": Harness.from_genesis,
+        "PubkeyCache": pubkey_cache.PubkeyCache.__init__,
+        "SignatureCollector": per_block.SignatureCollector.__init__,
+        "per_block_processing": per_block.per_block_processing,
+        "process_deposit": per_block.process_deposit, "apply_deposit": per_block.apply_deposit,
+        "initialize_beacon_state_from_eth1": genesis.initialize_beacon_state_from_eth1,
+        "genesis_from_eth1_cache": genesis.genesis_from_eth1_cache,
+        "chain_harness": T.chain_harness,
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_block_entry_points()))
+def test_block_entry_points_default_to_the_card(name):
+    import inspect
+
+    params = inspect.signature(_block_entry_points()[name]).parameters
+    assert params["device"].default == "cuda"
+    if "backend" in params and name.startswith(("Harness", "chain")):
+        assert params["backend"].default == "gpu"
+
+
 def test_every_kernel_has_a_source_and_a_counter():
     for source, entries in cuda_build.SOURCES.items():
         assert os.path.exists(os.path.join(cuda_build.CSRC, f"{source}.cu"))

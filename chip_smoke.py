@@ -236,11 +236,51 @@ non-zero without its result line:
  7l. replay: BASELINE config #5 (bench_replay.py's loop) -- 32 slots over
     the first epoch boundary at 65,536 validators, built unmeasured with
     NO_VERIFICATION, imported by two fresh replayers: VERIFY_BULK per block
-    (32 device calls) and Harness.import_segment (one collector, one call
-    of 608 sets before anything is committed); slots/s, the split (the
-    boundary block's per-block host time beside the median), each block's
-    verdict, equal final roots; every kernel at the segment's shapes
-    against its plain version;
+    over the last 8 slots from the built state at slot 24 (8 device calls)
+    and Harness.import_segment over all 32 (one collector, one call of 608
+    sets before anything is committed); slots/s, the split (the boundary
+    block's per-block host time beside the median), each block's verdict,
+    equal final roots; every kernel at the segment's shapes against its
+    plain version;
+ 7m. chain: BeaconChain (beacon_chain/chain.py) with backend="gpu" on the
+    card, its store, fork choice, pools, bus, DA checker and light-client
+    producer. First the bus's canary pair (a per-set call on every
+    dispatch, its keys as points): each of its kernels held at its
+    shapes, its verdicts [True, False]. chain_block: 7k's genesis with 7k's filled pubkey cache
+    (construction timed), 7k's block through process_block: one batch call
+    (and the bus's canary pair, a per-set call), the sets 7k's collector
+    verified byte for byte, head and fork choice's head the block, the
+    post-state root 7k's, the batch on the pubkey table (the bus's sentinel
+    rides it as the table's extra row); its split from the chain's own
+    spans (the state copy, the hashing to G2, the hot-state write, fork
+    choice, the import hooks), the backend's marshalling and device times,
+    the slot-budget stages; every kernel held at the batch's shapes (the
+    131 sets and the sentinel). chain_gossip: for the head's slot, 64 singles (one member of
+    each committee, sk = index + 1) through
+    process_unaggregated_attestations: all accepted, their votes in fork
+    choice, 64 aggregates in the naive pool; 64 more with one forged:
+    that one refused alone, the batch and the per-set call (and the
+    canary); 64 aggregates (3 sets each) through
+    process_aggregated_attestations into the op pool; every kernel held at
+    the singles' shapes; the bus's hold beside each wall. chain_segment:
+    7l's 32 blocks through process_chain_segment on a fresh chain on 7l's
+    genesis, the light-client hook off (chain_lc measures it once): one
+    bulk call on the table, head at slot 32, 7l's final root, slots/s
+    beside the harness's, every kernel held at the batch's shapes; a
+    segment of the first SEGMENT_FORGED_LEN blocks with the last one's
+    first attestation forged (the proposal re-signed): refused at the
+    batch, nothing stored, fork choice at genesis. chain_lc: a light-client
+    producer with device_check on the segment chain's last import: its
+    branch folded on csrc/sha256_fold.cu, on the attested state root. chain_blobs: a mainnet-spec chain with
+    bellatrix at epoch 1 at BLOB_V validators (32 slots built unverified;
+    the chains from that checkpoint), the slot-33 block carrying 7e's six
+    blobs, make_blob_sidecars's proofs equal to 7e's; the six sidecars
+    first (one header check), then the block: fused, one slot_program
+    dispatch; serial, the KZG settle then the fold; equal heads and roots;
+    every kernel of the fused program held at its own inputs (the block's
+    sets and the sentinel, the six blobs' KZG lanes);
+    then the slot-34 block held ("data unavailable") until its last
+    sidecar imports it;
  8. the tensor-core probe (lighthouse_tpu_torch.ops.mma_probe), int8 and
     bf16, exact against the probe's numpy check and the plain version,
     kernel and library call timed the same way (and each once more in one
@@ -251,7 +291,11 @@ non-zero without its result line:
     every kernel its launches in phase 7g's program run; epoch_rewards its
     launches in 7i's process_epoch, slasher_update in 7j's two full-width
     batches; a "block" and a "segment" record for the kernels of 7k and
-    7l, with their launches there), then {"ok": true,
+    7l, with their launches there; a "chain" record with every kernel's
+    launches in each arm of 7m and its times at the shapes of 7m's
+    batches: canary_pair, gossip, chain_block, chain_segment, chain_blobs
+    and chain_blobs_kzg),
+    then {"ok": true,
     "device": {...}} as the last line.
 
 The kernel records also go to chiprun_out/chip_smoke_records.json.
@@ -347,11 +391,24 @@ BLOCK_COMMITTEES = 64
 BLOCK_SETS = 2 * BLOCK_COMMITTEES + 3
 BLOCK_KEYS = 2 * BLOCK_COMMITTEES * 128 + 512 + 2
 FORGED_AT = 9
+# the chain (phase 7m): a gossip batch of 64 singles (ATTESTATION_BATCH_MAX,
+# lighthouse_tpu/network/beacon_processor.py:94), the forged one's index; the
+# blob chain's validators (its genesis cannot start at bellatrix, so it runs
+# 32 slots to reach it: cut from BLOCK_V)
+GOSSIP_FORGED = 17
+BLOB_V = 16_384
+# the forged segment: 7l's first 4 blocks, the fourth forged (the batch fails
+# before anything is committed, as it would at 32)
+SEGMENT_FORGED_LEN = 4
 # the 32-slot replay (BASELINE config #5), cut to 65,536 validators (16
 # committees a slot): the build signs an aggregate a committee and copies
 # the state a block
 REPLAY_V = 65_536
 REPLAY_SLOTS = 32
+# the per-block replayer's depth: the last 8 slots (25-32, the epoch
+# boundary's block last), cut from 32 to keep the script's time with the
+# chain's phase; the segment replays all 32
+REPLAY_PER_BLOCK = 8
 REPLAY_COMMITTEES = 16
 N_COMMITTEES = 64
 COMMITTEE = 480
@@ -359,8 +416,12 @@ N_FLAT = 1_024
 REPS = 5
 
 
+T_START = time.monotonic()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase line; t_s, the script's seconds so far."""
+    print(json.dumps({"phase": phase, "t_s": time.monotonic() - T_START, **kw}), flush=True)
 
 
 class SettleWork:
@@ -395,7 +456,7 @@ def main() -> int:
     from lighthouse_tpu_torch.ops import mma_probe, subgroup, subgroup_rows
     from lighthouse_tpu_torch.ops import device_io, window_ladder
     from lighthouse_tpu_torch.bls.hash_to_curve import hash_to_field_fp2, iso_map, map_to_curve_sswu
-    from lighthouse_tpu_torch.common import device_attribution
+    from lighthouse_tpu_torch.common import device_attribution, tracing
     from lighthouse_tpu_torch.common.events_journal import Journal
     from lighthouse_tpu_torch.device_plane import GUARD, INJECTOR, canary, executor
     from lighthouse_tpu_torch.device_plane.executor import (
@@ -1315,9 +1376,8 @@ def main() -> int:
     # --------------------------------------- 7c. the bus on a full slot
     # the slot's 64 committees as 64 submissions of 480 sets (consumer
     # oppool) to one VerificationBus(backend="gpu") from 8 threads, canary
-    # on; the sentinel pair's keys are registered in the table, so the
-    # batches stay indexed
-    table.append([s.pubkeys[0] for s in canary.bls_sentinels()])
+    # on; the valid sentinel rides each batch as the table's extra row, so
+    # the batches stay indexed
     committees = [slot[g * COMMITTEE:(g + 1) * COMMITTEE] for g in range(N_COMMITTEES)]
 
     def bus_round(subs, threads=8):
@@ -1765,7 +1825,7 @@ def main() -> int:
     # ----------------------------------------- 7g. the slot program (slot_program)
     # one program: the slot's 64 committee submissions (consumer oppool),
     # phase 7e's six-blob settle and 1,024 depth-6 Merkle queries, canary on
-    # (the sentinel's key is in the table since 7c)
+    # (the sentinel rides as the table's extra row)
     sp = {}
     pq = merkle_q[1_024]
 
@@ -1821,7 +1881,7 @@ def main() -> int:
         pq, merkle_roots[1_024], consumer="light_client", device="cuda")) == [True] * len(pq)
     assert serial_call("fold", lambda r: api.verify_signature_sets_shared(
         [(c, "oppool") for c in committees], seed=90 + r,
-        extra_sets=[canary.bls_sentinels()[0]], device="cuda"))[0] is True
+        extra_sets=[canary.riding_sentinel(st for c in committees for st in c)], device="cuda"))[0] is True
     fused = {k: v for k, v in program_launches.items() if v}
     summed = {k: v for k, v in serial_launches.items() if v}
     assert fused == summed, ("slot_program: launches", fused, summed)
@@ -2712,6 +2772,12 @@ def main() -> int:
     bk["forged"] = fg
     bk["phase_s"] = time.perf_counter() - t_phase
     records["block_phase"] = bk
+    # what phase 7m's chain starts from: 7k's genesis, its filled cache, the
+    # block with its root and post-state root, the sets its import verified
+    chain_genesis, chain_cache = pre_state, bh.pubkey_cache
+    block_root_7k = type(block.message).hash_tree_root(block.message)
+    block_post_root = post_root
+    block_sets_fp = [set_fp(s) for s in block_coll.sets]
     del bh, pre_state, block_coll
 
     # -------------------------- 7l. a 32-slot replay (replay, config #5)
@@ -2722,9 +2788,11 @@ def main() -> int:
     # aggregate, the proposal and the RANDAO reveal: 19 sets, 2,562 keys.
     # Built unmeasured with NO_VERIFICATION (each block's post-state the
     # one production computed its root on); then replayed by two fresh
-    # replayers: import_block with VERIFY_BULK per block (32 device calls)
-    # and Harness.import_segment, one collector and one finish() before
-    # anything is committed (one device call of 608 sets)
+    # replayers: import_block with VERIFY_BULK per block over the last
+    # REPLAY_PER_BLOCK slots, the epoch boundary's block among them, from
+    # the built state before them (one device call a block), and
+    # Harness.import_segment over all 32, one collector and one finish()
+    # before anything is committed (one device call of 608 sets)
     t_phase = time.perf_counter()
     rp = {}
     rkeys = chain_keys[:REPLAY_V]
@@ -2732,23 +2800,26 @@ def main() -> int:
     producer = T.chain_harness(bspec, rkeys, backend="gpu", device="cuda")
     genesis = producer.state.copy()
     producer.pending_attestations = producer.make_attestations(producer.state, 0)
-    blocks = [producer.advance_slot_with_block(s, strategy=BlockSignatureStrategy.NO_VERIFICATION)
-              for s in range(1, REPLAY_SLOTS + 1)]
+    blocks = []
+    for s in range(1, REPLAY_SLOTS + 1):
+        blocks.append(producer.advance_slot_with_block(s, strategy=BlockSignatureStrategy.NO_VERIFICATION))
+        if s == REPLAY_SLOTS - REPLAY_PER_BLOCK:
+            per_block_base = producer.state.copy()
     producer_root = cached_state_root(producer.state)
     rp["build_s"] = time.perf_counter() - t0
     per_block_sets = [3 + len(b.message.body.attestations) for b in blocks]
     assert per_block_sets == [3 + REPLAY_COMMITTEES] * REPLAY_SLOTS, per_block_sets
 
-    def replayer():
-        return T.chain_harness(bspec, rkeys, backend="gpu", device="cuda", genesis=genesis)
+    def replayer(base):
+        return T.chain_harness(bspec, rkeys, backend="gpu", device="cuda", genesis=base)
 
-    r1 = replayer()
+    r1 = replayer(per_block_base)
     gpu_backend._MSG_CACHE.clear()
     calls0 = dict(gpu_backend.CALL_COUNTS)
     cuda_build.reset_launches()
     splits, accepted1, n_sets, n_keys_r = [], [], 0, 0
     t0 = time.perf_counter()
-    for b in blocks:
+    for b in blocks[-REPLAY_PER_BLOCK:]:
         accepted1.append(r1.import_block(b, consumer="bench") == bytes(b.message.state_root))
         host = dict(gpu_backend.LAST_HOST_STATS)
         splits.append(dict(r1.last_import_stats, marshal_s=host["host_ms"] / 1e3,
@@ -2763,9 +2834,9 @@ def main() -> int:
         n_keys_r += 2 + sum(sum(a.aggregation_bits) for a in body.attestations) + sum(
             body.sync_aggregate.sync_committee_bits)
     root1 = cached_state_root(r1.state)
-    del r1
+    del r1, per_block_base
 
-    r2 = replayer()
+    r2 = replayer(genesis)
     gpu_backend._MSG_CACHE.clear()
     calls0 = dict(gpu_backend.CALL_COUNTS)
     cuda_build.reset_launches()
@@ -2786,15 +2857,16 @@ def main() -> int:
 
     # the block at slot 32 crosses into epoch 1 and carries slot 31's
     # attestations, of the previous epoch
-    boundary = splits[REPLAY_SLOTS - 1]
+    boundary = splits[-1]
     rp.update({
-        "validators": REPLAY_V, "slots": REPLAY_SLOTS, "sets": n_sets, "keys": n_keys_r,
+        "validators": REPLAY_V, "slots": REPLAY_SLOTS, "sets": len(segment.sets), "keys": n_keys_r,
         "accepted": {"per_block": sum(accepted1), "segment": sum(accepted2)},
-        "every_block_accepted": len(accepted1) == len(accepted2) == REPLAY_SLOTS
+        "every_block_accepted": len(accepted1) == REPLAY_PER_BLOCK and len(accepted2) == REPLAY_SLOTS
         and all(accepted1) and all(accepted2) and r2.state.slot == REPLAY_SLOTS,
         "roots_equal": root1 == root2 == producer_root,
         "final_root": producer_root.hex(),
-        "per_block": {"wall_s": wall1, "slots_per_s": REPLAY_SLOTS / wall1, "device_calls": calls1,
+        "per_block": {"slots": REPLAY_PER_BLOCK, "wall_s": wall1, "slots_per_s": REPLAY_PER_BLOCK / wall1,
+                      "device_calls": calls1,
                       "split_median": {k: med(k) for k in ("copy_s", "process_slots_s", "per_block_s",
                                                            "verify_s", "state_root_s", "marshal_s",
                                                            "device_s")},
@@ -2818,8 +2890,9 @@ def main() -> int:
     emit("replay", **rp)
     assert rp["every_block_accepted"], rp["accepted"]
     assert rp["roots_equal"], (root1.hex(), root2.hex(), producer_root.hex())
-    assert n_sets == len(segment.sets) == REPLAY_SLOTS * (3 + REPLAY_COMMITTEES), (n_sets, len(segment.sets))
-    assert calls1 == {"batch": REPLAY_SLOTS, "individual": 0}, calls1
+    assert n_sets == REPLAY_PER_BLOCK * (3 + REPLAY_COMMITTEES), n_sets
+    assert len(segment.sets) == REPLAY_SLOTS * (3 + REPLAY_COMMITTEES), len(segment.sets)
+    assert calls1 == {"batch": REPLAY_PER_BLOCK, "individual": 0}, calls1
     assert calls2 == {"batch": 1, "individual": 0}, calls2
     for lbl, launches in (("per_block", per_block_launches), ("segment", segment_launches)):
         missing = [k for k in BATCH_KERNELS if not launches.get(k)]
@@ -2828,7 +2901,473 @@ def main() -> int:
     rp["phase_s"] = time.perf_counter() - t_phase
     records["replay_phase"] = rp
     records["replay_launches"] = {"per_block": per_block_launches, "segment": segment_launches}
-    del r2, producer, blocks, segment, genesis, chain_keys
+    del r2, segment
+
+    # ------------------------------------------- 7m. the beacon chain (chain)
+    # BeaconChain (lighthouse_tpu_torch/beacon_chain/chain.py) on the card,
+    # with its store, fork choice, pools, bus, DA checker and light-client
+    # producer: a. 7k's genesis and filled pubkey cache (BLOCK_V), 7k's
+    # block through process_block; b. gossip batches for the head's slot:
+    # 64 singles, 64 singles with one forged, 64 aggregates; c. 7l's 32
+    # blocks as one segment on a fresh chain on 7l's genesis (REPLAY_V), and
+    # again with the last block's first attestation forged; d. a blob block
+    # carrying 7e's six blobs on a mainnet-spec chain with bellatrix at
+    # epoch 1 (BLOB_V validators), sidecars first, fused and serial, then a
+    # block held until its last sidecar; e. the light-client producer with
+    # device_check on the segment chain's last import
+    from lighthouse_tpu_torch import bls as pbls
+    from lighthouse_tpu_torch import ssz as pssz
+    from lighthouse_tpu_torch.beacon_chain import BeaconChain
+    from lighthouse_tpu_torch.beacon_chain.attestation_verification import VerifiedAttestation
+    from lighthouse_tpu_torch.beacon_chain.chain import BlockError
+    from lighthouse_tpu_torch.light_client import LightClientUpdateProducer
+    from lighthouse_tpu_torch.state_processing.helpers import get_domain
+    from lighthouse_tpu_torch.store.hot_cold import COL_BLOCK
+    from lighthouse_tpu_torch.types.helpers import compute_signing_root
+    from lighthouse_tpu_torch.verification_bus.bus import DEFAULT_GPU_HOLD_MS
+
+    t_phase = time.perf_counter()
+    GUARD.reset()
+    INJECTOR.reset()
+    ch, chain_launches = {}, {}
+
+    def calls_since(c0):
+        return {k: gpu_backend.CALL_COUNTS[k] - c0[k] for k in c0}
+
+    def launched():
+        return {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+
+    # the split of an import, from the chain's and the bus's own spans
+    SPLIT_SPANS = {"import/state_copy": "copy_s", "verify/hash_to_g2": "hash_to_g2_s",
+                   "import/hot_state_write": "hot_state_write_s",
+                   "import/fork_choice_on_block": "fork_choice_on_block_s",
+                   "import/fork_choice_get_head": "fork_choice_get_head_s", "import/hooks": "import_hooks_s"}
+    tracing.configure(enabled=True, capacity=16_384)
+
+    def span_split():
+        """Seconds by SPLIT_SPANS over the span trees completed since the
+        tracer's last reset; the tracer is reset."""
+        total = {}
+
+        def walk(d):
+            total[d["name"]] = total.get(d["name"], 0.0) + d["duration_s"]
+            for c in d["children"]:
+                walk(c)
+        for d in tracing.TRACER.recent():
+            walk(d)
+        tracing.TRACER.reset()
+        return {key: total.get(name, 0.0) for name, key in SPLIT_SPANS.items()}
+
+    def keep_submissions(c, submitted):
+        """The chain's bus submissions kept, each as its list of sets."""
+        real_submit = c.verification_bus.submit
+
+        def submit(sets, *a, **kw):
+            sets = list(sets)
+            submitted.append(sets)
+            return real_submit(sets, *a, **kw)
+        c.verification_bus.submit = submit
+
+    def budget(c):
+        """The chain's last slot-budget record: its stages and dispatches."""
+        rec = c.slot_budget.recent(1)[-1]
+        stages = {}
+        for name, s, e in rec["stages"]:
+            stages[name] = stages.get(name, 0.0) + e - s
+        return {"wall_s": rec["wall_s"], "stages_s": stages, "unattributed_s": rec["unattributed_s"],
+                "serial_dispatches": rec["serial_dispatches"], "device_s": rec["device_s"],
+                "bus_wait_s": rec["bus_wait_s"],
+                "dispatches": [(d["label"], d["kind"]) for d in rec["dispatches"]]}
+
+    # the bus's canary pair, a per-set call on every chain dispatch: its two
+    # sets' keys are in no table (the point path); each of its kernels held
+    # at its shapes, and its verdicts [True, False]
+    pm = gpu_backend._marshal_flat(list(canary.bls_sentinels()), pow2=False)
+    prec = records.setdefault("canary_pair", {})
+    for w, words in ((1, pm.pubkeys), (2, pm.sigs)):
+        pt = tuple(bv._lanes(c, dev) for c in words)
+        prec[f"jacobian_to_affine_g{w}"] = hold(
+            f"jacobian_to_affine_g{w}", lambda: curve_kernels.jacobian_to_affine(pt),
+            lambda: curve_kernels.jacobian_to_affine_plain(pt), nb(pt),
+            products=curve_kernels.affine_products(w, True, pt[0].shape[-1]))
+    agg_p = bv._aggregate_keys(gpu_backend._pubkeys(pm, dev), pm.key_mask, dev)
+    prec["to_affine_g1"] = hold(
+        "to_affine_g1", lambda: curve_kernels.to_affine(agg_p), lambda: curve_kernels.to_affine_plain(agg_p),
+        nb(agg_p), products=curve_kernels.affine_products(1, False, agg_p[0].shape[-1]))
+    g1p, g2p, pmask_p, _ = bv._individual_pairs(pm.msgs, pm.sigs, gpu_backend._pubkeys(pm, dev),
+                                                pm.key_mask, pm.set_mask, dev)
+    prec["miller"] = hold("miller", lambda: miller.miller_loop(g1p, g2p, pmask_p),
+                          lambda: miller.miller_loop_plain(g1p, g2p, pmask_p), nb(g1p, g2p, pmask_p))
+    f_pair = miller.miller_loop(g1p, g2p, pmask_p)
+    prec["pair_final_exp"] = hold("pair_final_exp", lambda: final_exp.pair_final_exp(f_pair),
+                                  lambda: final_exp.pair_final_exp_plain(f_pair), nb(f_pair))
+    pair_ok = final_exp.pair_final_exp(f_pair)[1].tolist()
+    assert pair_ok == [True, False], f"canary pair: stage-by-stage verdicts {pair_ok}"
+
+    # ---- a. the block (chain_block)
+    submitted = []
+    t0 = time.perf_counter()
+    chain = BeaconChain(chain_genesis, bspec, backend="gpu", device="cuda", pubkey_cache=chain_cache)
+    construct_s = time.perf_counter() - t0
+    keep_submissions(chain, submitted)
+    gpu_backend._MSG_CACHE.clear()  # the block's messages hashed in its import, as in 7k
+    c0 = dict(gpu_backend.CALL_COUNTS)
+    b0 = chain.verification_bus.stats()["batches_formed"]
+    cuda_build.reset_launches()
+    tracing.TRACER.reset()
+    t0 = time.perf_counter()
+    root_a = chain.process_block(block)
+    wall_a = time.perf_counter() - t0
+    split = span_split()
+    chain_launches["block"] = launched()
+    host = dict(gpu_backend.LAST_HOST_STATS)
+    calls = calls_since(c0)
+    canaries = chain.verification_bus.stats()["batches_formed"] - b0
+    fc_head = chain.fork_choice.get_head(chain._justified_balances)
+    post_a = cached_state_root(chain.head_state)
+    same_sets = len(submitted) == 1 and [set_fp(s) for s in submitted[0]] == block_sets_fp
+    ch["block"] = {
+        "validators": BLOCK_V, "construct_s": construct_s, "wall_s": wall_a, "sets": len(submitted[0]),
+        "same_sets_as_7k": same_sets, "head_is_block": chain.head_root == root_a == block_root_7k,
+        "fork_choice_head_equal": fc_head == chain.head_root, "post_root": post_a.hex(),
+        "post_root_equal_7k": post_a == block_post_root, "device_calls": calls, "canary_calls": canaries,
+        "split": dict(split, marshal_s=host["host_ms"] / 1e3, device_s=host["device_ms"] / 1e3,
+                      batch_sets=host["n_sets"], indexed=host["indexed_path"]),
+        "slot_budget": budget(chain), "launches": chain_launches["block"]}
+    print(smi, flush=True)
+    emit("chain_block", **ch["block"])
+    assert same_sets and ch["block"]["head_is_block"] and ch["block"]["fork_choice_head_equal"], ch["block"]
+    assert ch["block"]["post_root_equal_7k"], "chain_block: post-state root differs from 7k's"
+    # one batch on the card; the bus's canary pair is a per-set call of its own
+    assert calls == {"batch": 1, "individual": canaries} and canaries == 1, (calls, canaries)
+    # the sentinel rides as the table's extra row: the batch stays indexed
+    assert ch["block"]["split"]["indexed"], "chain_block: the batch left the pubkey table"
+    missing = [k for k in BATCH_KERNELS if not chain_launches["block"].get(k)]
+    assert not missing, f"chain_block: the path launched no {missing}"
+    # every kernel at the batch's own inputs: the block's sets and the
+    # sentinel as the bus adds it
+    hold_batch("chain_block", submitted[0] + [canary.riding_sentinel(submitted[0])], 71)
+
+    # ---- b. gossip (chain_gossip): the head's slot, one member of each of
+    # its 64 committees a single (sk = index + 1); then the second members
+    # with one forged; then 64 aggregates, the third member the aggregator
+    gs = {"hold_ms": DEFAULT_GPU_HOLD_MS}
+    hslot = int(chain.head_state.slot)
+    hepoch = bspec.slot_to_epoch(hslot)
+    att_domain = get_domain(chain.head_state, bspec.DOMAIN_BEACON_ATTESTER, hepoch, bspec)
+    datas = [chain.produce_attestation_data(hslot, k) for k in range(BLOCK_COMMITTEES)]
+    committees = [chain.committee_for(d) for d in datas]
+    roots_g = [compute_signing_root(type(d).hash_tree_root(d), att_domain) for d in datas]
+
+    def singles(member):
+        out = []
+        for d, com, r in zip(datas, committees, roots_g):
+            v = com[member]
+            out.append(chain.t.Attestation(
+                aggregation_bits=[j == member for j in range(len(com))], data=d,
+                signature=chain_keys[v].sk.sign(r).to_bytes()))
+        return out
+
+    t0 = time.perf_counter()
+    batch1, batch2 = singles(0), singles(1)
+    batch2[GOSSIP_FORGED].signature = batch2[GOSSIP_FORGED + 1].signature
+    sel_domain = get_domain(chain.head_state, bspec.DOMAIN_SELECTION_PROOF, hepoch, bspec)
+    agg_domain = get_domain(chain.head_state, bspec.DOMAIN_AGGREGATE_AND_PROOF, hepoch, bspec)
+    sel_root = compute_signing_root(pssz.uint64.hash_tree_root(hslot), sel_domain)
+    aggregates = []
+    for d, com, r in zip(datas, committees, roots_g):
+        agg = chain.t.Attestation(aggregation_bits=[True] * len(com), data=d, signature=pbls.SecretKey(
+            sum(v + 1 for v in com) % R_ORDER).sign(r).to_bytes())
+        a_idx = com[2]
+        msg = chain.t.AggregateAndProof(aggregator_index=a_idx, aggregate=agg,
+                                        selection_proof=chain_keys[a_idx].sk.sign(sel_root).to_bytes())
+        aggregates.append(chain.t.SignedAggregateAndProof(message=msg, signature=chain_keys[a_idx].sk.sign(
+            compute_signing_root(type(msg).hash_tree_root(msg), agg_domain)).to_bytes()))
+    gs["sign_s"] = time.perf_counter() - t0
+
+    def gossip(label, fn, items):
+        del submitted[:]
+        gpu_backend._MSG_CACHE.clear()
+        c0 = dict(gpu_backend.CALL_COUNTS)
+        s0 = chain.verification_bus.stats()
+        cuda_build.reset_launches()
+        tracing.TRACER.reset()
+        t0 = time.perf_counter()
+        res = fn(items)
+        wall = time.perf_counter() - t0
+        hash_s = span_split()["hash_to_g2_s"]
+        host = dict(gpu_backend.LAST_HOST_STATS)
+        chain_launches[f"gossip_{label}"] = launched()
+        s1 = chain.verification_bus.stats()
+        ok = [isinstance(r, VerifiedAttestation) for r in res]
+        gs[label] = {"n": len(items), "accepted": sum(ok), "refused_at": [i for i, g in enumerate(ok) if not g],
+                     "wall_s": wall, "hash_to_g2_s": hash_s, "indexed": host["indexed_path"],
+                     "marshal_s": host["host_ms"] / 1e3, "device_s": host["device_ms"] / 1e3,
+                     "device_calls": calls_since(c0),
+                     "canary_calls": s1["batches_formed"] - s0["batches_formed"],
+                     "triggers": {k: v - s0["triggers"].get(k, 0) for k, v in s1["triggers"].items()
+                                  if v != s0["triggers"].get(k, 0)},
+                     "sets": sum(len(s) for s in submitted), "launches": chain_launches[f"gossip_{label}"]}
+        return res
+
+    gossip("singles", chain.process_unaggregated_attestations, batch1)
+    singles_sets = list(submitted[0])
+    voted = all(chain.fork_choice.votes[com[0]].next_root == chain.head_root for com in committees)
+    pooled = len(chain.naive_pool.aggregates_at_slot(hslot))
+    gossip("forged", chain.process_unaggregated_attestations, batch2)
+    gossip("aggregates", chain.process_aggregated_attestations, aggregates)
+    gs.update(votes_in_fork_choice=voted, naive_pool_aggregates=pooled,
+              naive_pool_after_forged=len(chain.naive_pool.aggregates_at_slot(hslot)),
+              op_pool_attestations=chain.op_pool.num_attestations())
+    print(smi, flush=True)
+    emit("chain_gossip", **gs)
+    s1, fg, ag = gs["singles"], gs["forged"], gs["aggregates"]
+    assert s1["accepted"] == BLOCK_COMMITTEES and voted and pooled == BLOCK_COMMITTEES, s1
+    assert s1["indexed"] and fg["indexed"] and ag["indexed"], "chain_gossip: a batch left the pubkey table"
+    assert s1["device_calls"] == {"batch": 1, "individual": s1["canary_calls"]} and s1["canary_calls"] == 1, s1
+    assert fg["refused_at"] == [GOSSIP_FORGED] and fg["accepted"] == BLOCK_COMMITTEES - 1, fg
+    # batch, then per-set verdicts: two calls, and the batch's canary pair
+    assert fg["device_calls"] == {"batch": 1, "individual": 1 + fg["canary_calls"]} and fg["canary_calls"] == 1, fg
+    assert ag["accepted"] == BLOCK_COMMITTEES and gs["op_pool_attestations"] == BLOCK_COMMITTEES, ag
+    assert ag["device_calls"]["batch"] == 1 and ag["sets"] == 3 * BLOCK_COMMITTEES, ag
+    # the singles' kernels at the gossip batch's shapes: the 64 sets and the
+    # bus's valid sentinel riding them as the table's extra row
+    hold_batch("gossip", singles_sets + [canary.riding_sentinel(singles_sets)], 61)
+    ch["gossip"] = gs
+
+    # ---- c. the segment (chain_segment): 7l's 32 blocks on a fresh chain
+    seg_cache = T.chain_pubkey_cache(genesis, rkeys, "cuda")
+    t0 = time.perf_counter()
+    seg_chain = BeaconChain(genesis.copy(), bspec, backend="gpu", device="cuda", pubkey_cache=seg_cache)
+    seg_construct_s = time.perf_counter() - t0
+    # the light-client producer's hook off here: chain_lc measures it once
+    seg_chain.import_hooks.remove(seg_chain.light_client_producer.on_import)
+    seg_submitted = []
+    keep_submissions(seg_chain, seg_submitted)
+    gpu_backend._MSG_CACHE.clear()
+    c0 = dict(gpu_backend.CALL_COUNTS)
+    cuda_build.reset_launches()
+    tracing.TRACER.reset()
+    t0 = time.perf_counter()
+    seg_roots = seg_chain.process_chain_segment(blocks)
+    wall_c = time.perf_counter() - t0
+    seg_split = span_split()
+    chain_launches["segment"] = launched()
+    seg_host = dict(gpu_backend.LAST_HOST_STATS)
+    seg_calls = calls_since(c0)
+    seg_root = cached_state_root(seg_chain.head_state)
+    # the forged segment: the first SEGMENT_FORGED_LEN blocks, the last one's
+    # first attestation carrying the second's signature, the proposal
+    # re-signed: the one batch fails before anything is committed
+    forged_last = blocks[SEGMENT_FORGED_LEN - 1].copy()
+    fbody = forged_last.message.body
+    assert len(fbody.attestations) >= 2, "chain_segment: the forged block has too few attestations"
+    fbody.attestations[0].signature = bytes(fbody.attestations[1].signature)
+    prop_domain = get_domain(genesis, bspec.DOMAIN_BEACON_PROPOSER,
+                             bspec.slot_to_epoch(int(forged_last.message.slot)), bspec)
+    forged_last.signature = rkeys[forged_last.message.proposer_index].sk.sign(compute_signing_root(
+        type(forged_last.message).hash_tree_root(forged_last.message), prop_domain)).to_bytes()
+    f_chain = BeaconChain(genesis.copy(), bspec, backend="gpu", device="cuda", pubkey_cache=seg_cache)
+    c0 = dict(gpu_backend.CALL_COUNTS)
+    t0 = time.perf_counter()
+    try:
+        f_chain.process_chain_segment(blocks[:SEGMENT_FORGED_LEN - 1] + [forged_last])
+        f_raised = None
+    except BlockError as e:
+        f_raised = str(e)
+    f_wall = time.perf_counter() - t0
+    f_calls = calls_since(c0)
+    ch["segment"] = {
+        "validators": REPLAY_V, "slots": REPLAY_SLOTS, "construct_s": seg_construct_s, "wall_s": wall_c,
+        "slots_per_s": REPLAY_SLOTS / wall_c, "harness_segment_slots_per_s": rp["segment"]["slots_per_s"],
+        "imported": len(seg_roots), "head_slot": int(seg_chain.head_state.slot),
+        "final_root": seg_root.hex(), "final_root_equal_7l": seg_root == producer_root,
+        "device_calls": seg_calls, "split": dict(seg_split, marshal_s=seg_host["host_ms"] / 1e3,
+                                                 device_s=seg_host["device_ms"] / 1e3,
+                                                 batch_sets=seg_host["n_sets"],
+                                                 indexed=seg_host["indexed_path"]),
+        "launches": chain_launches["segment"],
+        "forged": {"blocks": SEGMENT_FORGED_LEN, "raised": f_raised, "wall_s": f_wall, "device_calls": f_calls,
+                   "blocks_stored": len(f_chain.store.kv.keys(COL_BLOCK)),
+                   "fork_choice_nodes": len(f_chain.fork_choice.proto.nodes),
+                   "head_is_genesis": f_chain.head_root == f_chain.genesis_root}}
+    print(smi, flush=True)
+    emit("chain_segment", **ch["segment"])
+    sg = ch["segment"]
+    assert sg["imported"] == REPLAY_SLOTS and sg["head_slot"] == REPLAY_SLOTS and sg["final_root_equal_7l"], sg
+    assert seg_calls == {"batch": 1, "individual": 1}, seg_calls  # one bulk call and its canary pair
+    assert sg["split"]["indexed"], "chain_segment: the batch left the pubkey table"
+    fs = sg["forged"]
+    assert fs["raised"] == "segment signature batch failed" and fs["blocks_stored"] == 0 and \
+        fs["fork_choice_nodes"] == 1 and fs["head_is_genesis"], fs
+    assert f_calls == {"batch": 1, "individual": 1}, f_calls
+    del f_chain
+    (seg_sets,) = seg_submitted
+    hold_batch("chain_segment", seg_sets + [canary.riding_sentinel(seg_sets)], 72)
+    del seg_sets, seg_submitted
+
+    # ---- e. the light-client producer with device_check (chain_lc): the
+    # segment chain's last import through a producer whose branches fold
+    # on the card (ops/merkle_proof, csrc/sha256_fold.cu)
+    lc = LightClientUpdateProducer(seg_chain, device_check=True, device="cuda")
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    lc.on_import(seg_roots[-1])
+    lc_s = time.perf_counter() - t0
+    chain_launches["lc"] = launched()
+    period = lc._period_at_slot(REPLAY_SLOTS - 1)
+    upd = lc.best_updates.get(period)
+    lc_rec = {"wall_s": lc_s, "launches": chain_launches["lc"], "produced": upd is not None}
+    if upd is not None:
+        attested_root = bytes(upd.attested_header.beacon.state_root)
+        leaf = type(upd.next_sync_committee).hash_tree_root(upd.next_sync_committee)
+        query = [(leaf, [bytes(b) for b in upd.next_sync_committee_branch], seg_chain.t.NEXT_SYNC_COMMITTEE_GINDEX)]
+        lc_rec.update(attested_slot=int(upd.attested_header.beacon.slot),
+                      branch_on_state_root=merkle_proof.batch_verify_branches(query, [attested_root],
+                                                                              device="cpu") == [True],
+                      attested_root_equal=attested_root == bytes(blocks[-2].message.state_root))
+    print(smi, flush=True)
+    emit("chain_lc", **lc_rec)
+    assert lc_rec["produced"] and lc_rec["branch_on_state_root"] and lc_rec["attested_root_equal"], lc_rec
+    assert chain_launches["lc"].get("sha256_fold", 0) >= 1, chain_launches["lc"]
+    ch["lc"] = lc_rec
+    del seg_chain, seg_cache, lc
+
+    # ---- d. the blob block (chain_blobs): a mainnet-spec chain with
+    # bellatrix at epoch 1 (the port's genesis cannot start at bellatrix), cut
+    # to BLOB_V validators; 32 slots built unverified; the chains start at
+    # slot 32 from that checkpoint (from_checkpoint); the block at slot 33
+    # carries 7e's six blobs (4,096 elements each, seed 4844)
+    dspec = mainnet_spec(ALTAIR_FORK_EPOCH=0, BELLATRIX_FORK_EPOCH=1)
+    dkeys = chain_keys[:BLOB_V]
+    t0 = time.perf_counter()
+    dh = T.chain_harness(dspec, dkeys, backend="gpu", device="cuda")
+    dh.pending_attestations = dh.make_attestations(dh.state, 0)
+    for s in range(1, dspec.SLOTS_PER_EPOCH + 1):
+        anchor_block = dh.advance_slot_with_block(s, strategy=BlockSignatureStrategy.NO_VERIFICATION)
+    anchor_state = dh.state
+    bl = {"validators": BLOB_V, "blobs": KZG_BLOBS, "field_elements": KZG_FE, "build_s": time.perf_counter() - t0,
+          "anchor_fork": dspec.fork_name_at_epoch(1)}
+    blob_block, post33 = dh._produce(dspec.SLOTS_PER_EPOCH + 1, dh.pending_attestations[:dspec.MAX_ATTESTATIONS],
+                                     blob_kzg_commitments=comms)
+    t0 = time.perf_counter()
+    sidecars = dh.make_blob_sidecars(blob_block, blobs)
+    bl["make_blob_sidecars_s"] = time.perf_counter() - t0
+    assert [bytes(sc.kzg_proof) for sc in sidecars] == proofs, "make_blob_sidecars: proofs differ from 7e's"
+    root33 = type(blob_block.message).hash_tree_root(blob_block.message)
+
+    def blob_chain(fuse):
+        c = BeaconChain.from_checkpoint(anchor_state, anchor_block, dspec, backend="gpu", device="cuda",
+                                        pubkey_cache=dh.pubkey_cache)
+        c.slot_fuse = fuse
+        return c
+
+    arms = {}
+    for arm, fuse in (("fused", True), ("serial", False)):
+        c = blob_chain(fuse)
+        gpu_backend._MSG_CACHE.clear()
+        c0 = dict(gpu_backend.CALL_COUNTS)
+        g0 = GUARD.stats()["dispatches"]
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        early = [c.process_blob_sidecar(sc) for sc in sidecars]  # candidates, header checked once
+        t1 = time.perf_counter()
+        header_calls = calls_since(c0)
+        c0 = dict(gpu_backend.CALL_COUNTS)
+        g1 = GUARD.stats()["dispatches"]
+        launches0 = launched()
+        blob_submitted = []
+        keep_submissions(c, blob_submitted)
+        cuda_build.reset_launches()
+        t2 = time.perf_counter()
+        imported = c.process_block(blob_block)
+        t3 = time.perf_counter()
+        chain_launches[f"blobs_{arm}"] = launched()
+        arms[arm] = {
+            "sidecars_s": t1 - t0, "sidecar_results": early, "header_device_calls": header_calls,
+            "headers_verified": len(c._verified_sidecar_headers), "header_launches": launches0,
+            "import_s": t3 - t2, "imported": imported == root33, "head": c.head_root.hex(),
+            "post_root": cached_state_root(c.head_state).hex(),
+            "stored_sidecars": len(c.store.get_blob_sidecars(root33)),
+            "device_calls": calls_since(c0), "guard_dispatches": GUARD.stats()["dispatches"] - g1,
+            "guard_dispatches_headers": g1 - g0, "slot_budget": budget(c),
+            "launches": chain_launches[f"blobs_{arm}"]}
+        arms[arm]["sidecar_results"] = [list(r) for r in early]
+        if arm == "fused":
+            fused_chain = c
+            (fused_sets,) = blob_submitted
+        else:
+            del c
+    # the next block, held until its last sidecar (the same blobs, so the
+    # same proofs, under block 34's header)
+    dh.state = post33
+    block34 = dh.produce_block(dspec.SLOTS_PER_EPOCH + 2, dh.make_attestations(post33, dspec.SLOTS_PER_EPOCH + 1),
+                               blob_kzg_commitments=comms)
+    root34 = type(block34.message).hash_tree_root(block34.message)
+    m34 = block34.message
+    header34 = dh.t.SignedBeaconBlockHeader(
+        message=dh.t.BeaconBlockHeader(slot=m34.slot, proposer_index=m34.proposer_index,
+                                       parent_root=bytes(m34.parent_root), state_root=bytes(m34.state_root),
+                                       body_root=type(m34.body).hash_tree_root(m34.body)),
+        signature=bytes(block34.signature))
+    sidecars34 = []
+    for sc in sidecars:
+        sc = sc.copy()
+        sc.signed_block_header = header34
+        sidecars34.append(sc)
+    held = []
+    try:
+        fused_chain.process_block(block34)
+        held.append(None)
+    except BlockError as e:
+        held.append(str(e))
+    t0 = time.perf_counter()
+    released = [fused_chain.process_blob_sidecar(sc) for sc in sidecars34[:-1]]
+    try:
+        fused_chain.process_block(block34)
+        held.append(None)
+    except BlockError as e:
+        held.append(str(e))
+    released.append(fused_chain.process_blob_sidecar(sidecars34[-1]))
+    release_s = time.perf_counter() - t0
+    bl.update(arms=arms, hold={"held": held, "released": [[r.hex() for r in x] for x in released],
+                               "head_is_34": fused_chain.head_root == root34, "wall_s": release_s,
+                               "stored_sidecars": len(fused_chain.store.get_blob_sidecars(root34))})
+    print(smi, flush=True)
+    emit("chain_blobs", **bl)
+    fa, sa = arms["fused"], arms["serial"]
+    for a in (fa, sa):
+        assert a["sidecar_results"] == [[]] * KZG_BLOBS and a["headers_verified"] == 1, a
+        assert a["header_device_calls"]["batch"] == 1, a  # the header signature once for its 6 sidecars
+        assert a["imported"] and a["stored_sidecars"] == KZG_BLOBS, a
+    assert fa["head"] == sa["head"] == root33.hex() and fa["post_root"] == sa["post_root"], (fa, sa)
+    # fused: the fold and the KZG settle in one slot_program dispatch;
+    # serial: the settle (kzg plane), then the fold (the bus)
+    assert fa["guard_dispatches"] == 1 and fa["slot_budget"]["serial_dispatches"] == 1, fa
+    assert sa["guard_dispatches"] == 2 and sa["slot_budget"]["serial_dispatches"] == 2, sa
+    assert all(h and h.startswith("data unavailable") for h in held), held
+    assert released[:-1] == [[]] * (KZG_BLOBS - 1) and released[-1] == [root34], released
+    assert bl["hold"]["head_is_34"] and bl["hold"]["stored_sidecars"] == KZG_BLOBS, bl["hold"]
+    missing = [k for k in PROGRAM_KERNELS if k != "sha256_fold" and not fa["launches"].get(k)]
+    assert not missing, f"chain_blobs fused: the path launched no {missing}"
+    # every kernel of the fused program at its own inputs: the block's sets
+    # and the sentinel as the program adds it, then the settle's six blobs
+    # (the sidecars' own bytes) on the KZG lanes, the DA checker's setup
+    hold_batch("chain_blobs", fused_sets + [canary.riding_sentinel(fused_sets)], 73)
+    _, zs_b, ys_b, cs_b, ws_b = kzg_api._batch_inputs(
+        [bytes(sc.blob) for sc in sidecars], [bytes(sc.kzg_commitment) for sc in sidecars],
+        [bytes(sc.kzg_proof) for sc in sidecars], None)
+    hold_verify_path("chain_blobs_kzg", *kzg_gpu.verify_lanes(cs_b, ws_b, kzg_api._rlc_scalars(KZG_BLOBS, 74),
+                                                              zs_b, ys_b),
+                     kzg_api._setup_for(KZG_FE, None).tau_g2, records.setdefault("chain_blobs_kzg", {}))
+    del fused_sets
+    ch["blobs"] = bl
+    del fused_chain, dh, anchor_state, post33
+
+    ch["phase_s"] = time.perf_counter() - t_phase
+    records["chain_phase"] = ch
+    records["chain_launches"] = chain_launches
+    del chain, chain_genesis, chain_cache, blocks, genesis, chain_keys, producer
 
     # ------------------------------------------- 8. tensor-core probe
     probe = {form: mma_probe.probe(form, dev) for form in mma_probe.FORMS}
@@ -2978,6 +3517,12 @@ def main() -> int:
                 if label == "segment":
                     entry[label]["launches_per_block_replay"] = \
                         records["replay_launches"]["per_block"].get(name, 0)
+        # the chain's launches in each arm of phase 7m, and the kernel at the
+        # gossip batch's shapes
+        entry["chain"] = {arm: launches_at.get(name, 0) for arm, launches_at in records["chain_launches"].items()}
+        for label in ("canary_pair", "gossip", "chain_block", "chain_segment", "chain_blobs", "chain_blobs_kzg"):
+            if name in records[label]:
+                entry["chain"][f"{label}_shapes"] = pick(records[label][name])
         if name in records["da"] and name != "rs_extend":  # at the cell verify's shapes
             entry["da"] = pick(records["da"][name]) | {
                 "launches": da_launches["verify"].get(name, 0),
@@ -2991,6 +3536,11 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def set_fp(s):
+    """A SignatureSet as bytes: its signature, its keys, its message."""
+    return (s.signature.to_bytes(), tuple(p.to_bytes() for p in s.pubkeys), bytes(s.message))
 
 
 def _flatten(x):

@@ -376,6 +376,22 @@ def verify_signature_sets(
     return result
 
 
+def prepare_messages(sets, backend: str | None = None):
+    """Every set's message hashed to G2 ahead of a dispatch, for
+    `verify_signature_sets_shared(messages=)`: on "gpu" a dict of the
+    backend's hashed entries, else None (the host backends hash as they
+    verify). A caller whose dispatch runs under a watchdog hashes here,
+    outside it."""
+    backend = _check_backend(backend)
+    if backend != "gpu":
+        return None
+    from lighthouse_tpu_torch.bls.gpu_backend import hash_messages
+
+    sets = list(sets)
+    with span("verify/hash_to_g2", n_sets=len(sets)):
+        return hash_messages(s.message for s in sets)
+
+
 def verify_signature_sets_shared(
     submissions,
     seed: int | None = None,
@@ -383,6 +399,7 @@ def verify_signature_sets_shared(
     backend: str | None = None,
     ladder: str = "window",
     extra_sets=None,
+    messages=None,
 ) -> tuple:
     """ONE dispatch spanning several consumers' sets. `submissions` is a
     list of (sets, consumer) pairs; the whole collection is one batch (one
@@ -394,7 +411,8 @@ def verify_signature_sets_shared(
 
     `extra_sets` are attribution-free riders: they join the dispatch but
     are counted nowhere (no `note_sets`, no contribution), and a batch that
-    is empty apart from riders is empty.
+    is empty apart from riders is empty. `messages` are the sets' messages
+    already hashed (`prepare_messages`).
 
     Returns `(ok, record)`, `record` the batch-economics dict (lanes, waste
     and amortized_fixed_ms when the gpu marshal ran) or None. No journal
@@ -432,7 +450,8 @@ def verify_signature_sets_shared(
                 from lighthouse_tpu_torch.bls.gpu_backend import verify_signature_sets_gpu
 
                 result = verify_signature_sets_gpu(
-                    flat, seed=seed, device=device, ladder=ladder, consumer=primary
+                    flat, seed=seed, device=device, ladder=ladder, consumer=primary,
+                    messages=messages,
                 )
         if backend != "gpu":
             attribution.note_batch(

@@ -125,6 +125,25 @@ def _msg_entry(message: bytes):
     return hit
 
 
+def hash_messages(messages) -> dict:
+    """{message: its entry (`_msg_entry`)} for every distinct message. A
+    caller that hashes a batch's messages before its dispatch holds the
+    entries itself, whatever the memo drops meanwhile."""
+    out: dict = {}
+    for message in messages:
+        message = bytes(message)
+        if message not in out:
+            out[message] = _msg_entry(message)
+    return out
+
+
+def _entry(message, messages):
+    """The message's entry from `messages` (`hash_messages`), else hashed
+    here."""
+    hit = None if messages is None else messages.get(bytes(message))
+    return _msg_entry(message) if hit is None else hit
+
+
 def _msg_affine(message: bytes):
     return _msg_entry(message)[0]
 
@@ -253,12 +272,14 @@ def _pack_keys(m, sets, order):
                           for c in _pack_jacobian(flat, 1))
 
 
-def _marshal(sets) -> _Marshalled:
+def _marshal(sets, messages=None) -> _Marshalled:
     plan = _group_plan(sets)
-    return _marshal_flat(sets) if plan is None else _marshal_grouped(sets, plan)
+    if plan is None:
+        return _marshal_flat(sets, messages=messages)
+    return _marshal_grouped(sets, plan, messages)
 
 
-def _marshal_grouped(sets, groups) -> _Marshalled:
+def _marshal_grouped(sets, groups, messages=None) -> _Marshalled:
     """Grid layout: (g_bucket, sg_bucket) lanes, group-major, one message per
     group; padding lanes carry no signature and no keys."""
     t0 = time.perf_counter()
@@ -270,7 +291,7 @@ def _marshal_grouped(sets, groups) -> _Marshalled:
     m.s_bucket = g_b * sg_b
     m.k_bucket = _bucket(max(len(s.pubkeys) for s in sets), 1)
     with span("verify/marshal/points"):
-        group_msgs = [_msg_entry(sets[ix[0]].message) for _, ix in groups]
+        group_msgs = [_entry(sets[ix[0]].message, messages) for _, ix in groups]
         order: list = []
         for _, ix in groups:
             order += list(ix) + [None] * (sg_b - len(ix))
@@ -293,7 +314,7 @@ def _marshal_grouped(sets, groups) -> _Marshalled:
     return m
 
 
-def _marshal_flat(sets, pow2: bool = True) -> _Marshalled:
+def _marshal_flat(sets, pow2: bool = True, messages=None) -> _Marshalled:
     """One lane per set; padded to a power of two (at least 4) for the RLC
     lane folds, or left at len(sets) (`pow2=False`, the per-set path)."""
     t0 = time.perf_counter()
@@ -304,7 +325,7 @@ def _marshal_flat(sets, pow2: bool = True) -> _Marshalled:
     m.k_bucket = _bucket(max(len(s.pubkeys) for s in sets), 1)
     pad = [None] * (m.s_bucket - n_sets)
     with span("verify/marshal/points"):
-        msgs = [_msg_entry(s.message) for s in sets]
+        msgs = [_entry(s.message, messages) for s in sets]
         sigs = [s.signature.point for s in sets] + pad
     t1 = time.perf_counter()
     with span("verify/marshal/pack"):
@@ -412,23 +433,24 @@ def _policy_ok(sets) -> bool:
         return all(signature_ok(s.signature) for s in sets)
 
 
-def _marshal_batch(sets, seed):
+def _marshal_batch(sets, seed, messages=None):
     with span("verify/marshal", n_sets=len(sets)):
-        m = _marshal(sets)
+        m = _marshal(sets, messages)
     with span("verify/rlc_sample"):
         rand_bits = _scalar_bits(_rlc_scalars(m.s_bucket, seed))
     return m, rand_bits
 
 
 def verify_signature_sets_gpu(
-    sets, seed: int | None = None, device="cuda", ladder: str = "window", consumer=None
+    sets, seed: int | None = None, device="cuda", ladder: str = "window", consumer=None,
+    messages=None,
 ) -> bool:
     dev = resolve_device(device)
     t_start = time.perf_counter()
     if not _policy_ok(sets):
         return False
     t_subgroup = time.perf_counter()
-    m, rand_bits = _marshal_batch(sets, seed)
+    m, rand_bits = _marshal_batch(sets, seed, messages)
     t_marshal = time.perf_counter()
 
     def attempt(plan):

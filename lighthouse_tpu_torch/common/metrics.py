@@ -22,6 +22,7 @@ scrape never races an observation.
 import threading
 import time
 from collections import defaultdict
+from collections.abc import MutableMapping
 
 
 def _escape_label_value(v) -> str:
@@ -335,3 +336,66 @@ class Registry:
 
 
 REGISTRY = Registry()
+
+
+# ------------------------------------------------ dict-compatible views
+
+
+class RegistryBackedMetrics(MutableMapping):
+    """A dict-compatible metrics mapping mirrored onto registry gauges.
+
+    Drop-in replacement for the ad-hoc `chain.metrics` dict: reads and
+    dict semantics (KeyError, .get defaults, iteration, `dict(...)`)
+    come from a local store, so multiple instances (tests build many
+    chains per process) never bleed into each other — while every write
+    is mirrored to a `<prefix><key>` gauge in the process registry, so
+    `/metrics` scrapes and remote telemetry read the same numbers.
+    """
+
+    def __init__(self, prefix: str, initial=None, registry=None):
+        self._prefix = prefix
+        self._registry = registry or REGISTRY
+        self._values: dict[str, float] = {}
+        self._gauges: dict[str, Gauge] = {}
+        for k, v in (initial or {}).items():
+            self[k] = v
+
+    def _metric_name(self, key: str) -> str:
+        safe = "".join(
+            c if c.isalnum() or c == "_" else "_" for c in key.lower()
+        )
+        return self._prefix + safe
+
+    def __setitem__(self, key, value):
+        self._values[key] = value
+        g = self._gauges.get(key)
+        if g is None:
+            g = self._gauges[key] = self._registry.gauge(
+                self._metric_name(key)
+            )
+        g.set(float(value))
+
+    def __getitem__(self, key):
+        return self._values[key]
+
+    def __delitem__(self, key):
+        del self._values[key]
+        g = self._gauges.pop(key, None)
+        if g is not None:
+            g.set(0.0)
+
+    def __iter__(self):
+        return iter(self._values)
+
+    def __len__(self):
+        return len(self._values)
+
+    def snapshot(self) -> dict:
+        """Atomic point-in-time copy (C-level plain-dict copy) — the
+        read for scrape/health threads while the owner mutates;
+        `dict(view)` goes through the MutableMapping iterator and can
+        raise mid-resize."""
+        return dict(self._values)
+
+    def __repr__(self):
+        return f"RegistryBackedMetrics({self._values!r})"

@@ -91,6 +91,25 @@ def bls_sentinels() -> tuple:
     return _bls_sets
 
 
+def riding_sentinel(sets):
+    """The valid sentinel as it rides a shared batch of `sets`: where every
+    key of the batch lies in one `DevicePubkeyTable`, its key is that
+    table's extra row (`DevicePubkeyTable.extra`), so the batch keeps the
+    table path on the card; else the sentinel as it is."""
+    valid = bls_sentinels()[0]
+    table = None
+    for s in sets:
+        for p in s.pubkeys:
+            if p.table is None or (table is not None and p.table is not table):
+                return valid
+            table = p.table
+    if table is None:
+        return valid
+    from lighthouse_tpu_torch import bls
+
+    return bls.SignatureSet(valid.signature, [table.extra(p) for p in valid.pubkeys], valid.message)
+
+
 def check_pair(backend: str, plan=NULL_PLAN, device="cuda") -> list:
     """Verify the (valid, invalid) sentinel pair per set on `backend`,
     verdicts routed through the dispatch's injection plan (so an

@@ -14,6 +14,8 @@ signing the data root, and the sync aggregate counts a member once for
 each seat it holds. That is the same point as the sum of the members'
 signatures, so the same bytes, at one G2 multiplication a committee.
 
+`make_blob_sidecars` builds a blob block's sidecars on the port's `kzg`.
+
 `Harness.from_genesis` builds a harness on keypairs, a genesis state and a
 pubkey cache that the caller made (`testing.chain_harness` does so at
 mainnet sizes, where interop keys and decompression cost too much).
@@ -410,6 +412,45 @@ class Harness:
             self.make_attestations(self.state, slot)
         )
         return block
+
+    def make_blob_sidecars(self, signed_block, blobs, backend="gpu"):
+        """Build the sidecars for a block produced with
+        blob_kzg_commitments (one per blob, in index order): KZG proofs
+        against the dev trusted setup, on `backend` ("gpu" on the
+        harness's device unless asked; every real backend gives the same
+        bytes), plus the signed header binding each sidecar to the block
+        root. Column sidecars (`make_data_column_sidecars`) wait for the
+        column checker (ROADMAP Queue 1 item 5)."""
+        from lighthouse_tpu_torch import kzg
+
+        t = self.t
+        msg = signed_block.message
+        header = t.SignedBeaconBlockHeader(
+            message=t.BeaconBlockHeader(
+                slot=msg.slot,
+                proposer_index=msg.proposer_index,
+                parent_root=bytes(msg.parent_root),
+                state_root=bytes(msg.state_root),
+                body_root=type(msg.body).hash_tree_root(msg.body),
+            ),
+            signature=bytes(signed_block.signature),
+        )
+        out = []
+        for i, blob in enumerate(blobs):
+            commitment = bytes(msg.body.blob_kzg_commitments[i])
+            out.append(
+                t.BlobSidecar(
+                    index=i,
+                    blob=bytes(blob),
+                    kzg_commitment=commitment,
+                    kzg_proof=kzg.compute_blob_kzg_proof(
+                        bytes(blob), commitment, backend=backend,
+                        consumer="kzg", device=self.device,
+                    ),
+                    signed_block_header=header,
+                )
+            )
+        return out
 
     def run_slots(self, n: int):
         start = self.state.slot + 1

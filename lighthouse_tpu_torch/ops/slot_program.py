@@ -39,12 +39,13 @@ signature fold is the unchanged `bls.verify_signature_sets_shared`.
 from lighthouse_tpu_torch.common import slot_budget
 
 
-def run_slot_program_segments(program, sig_backend, plan, extra_sets, seed, device):
+def run_slot_program_segments(program, sig_backend, plan, extra_sets, seed, device, messages=None):
     """Run every segment of `program`: the KZG settle works first (each its
     own folded batch, its verdict delivered to the work), then the Merkle
     checks, then the signature RLC fold over every submission. Returns
     `(ok, record)`: `ok` the signature and Merkle verdict, `record` the
-    fold's batch economics (None without signatures).
+    fold's batch economics (None without signatures). `messages` are the
+    signature sets' messages already hashed (`bls.prepare_messages`).
 
     Callers reach it only through `SlotProgram.run`'s guarded attempt."""
     from lighthouse_tpu_torch import bls, kzg
@@ -80,7 +81,7 @@ def run_slot_program_segments(program, sig_backend, plan, extra_sets, seed, devi
         return plan.verdict(True) and merkle_ok, None
     ok, record = bls.verify_signature_sets_shared(
         program.signature_submissions, backend=sig_backend, seed=seed,
-        extra_sets=extra_sets, device=device,
+        extra_sets=extra_sets, device=device, messages=messages,
     )
     return plan.verdict(bool(ok)) and merkle_ok, record
 
@@ -127,7 +128,7 @@ class SlotProgram:
         )
 
     def run(self, backend: str | None = None, journal=None, slot=None, predicted_s=None,
-            device="cuda"):
+            device="cuda", messages=None):
         """One guarded dispatch for the whole program: watchdog, breaker,
         canary and injection around the chained segments. Returns `(ok,
         record)` like the bus's shared verify; settle verdicts fan back
@@ -146,12 +147,16 @@ class SlotProgram:
         if effective == "gpu":
             resolve_device(device)
         canary_on = GUARD.canary_active(effective)
-        extra = [canary.bls_sentinels()[0]] if canary_on and self.signature_submissions else None
+        extra = (
+            [canary.riding_sentinel(st for sets, _ in self.signature_submissions for st in sets)]
+            if canary_on and self.signature_submissions
+            else None
+        )
 
         def attempt(plan):
             if canary_on:
                 canary.check_pair(effective, plan, device=device)
-            return run_slot_program_segments(self, backend, plan, extra, self.seed, device)
+            return run_slot_program_segments(self, backend, plan, extra, self.seed, device, messages)
 
         # the fused dispatch interval belongs to the bus's caller-side
         # "fused" mark (or, driven directly, to this outermost open)

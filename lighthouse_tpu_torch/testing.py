@@ -144,22 +144,30 @@ def chain_keypairs(n: int) -> list:
     return out
 
 
+def chain_pubkey_cache(state, keypairs, device="cuda"):
+    """A `PubkeyCache` on `device` holding `state`'s validators, filled from
+    the points `keypairs` (`chain_keypairs`, validator i's at i) hold -- the
+    entries `import_new` would decompress, without the decompressions. A
+    `BeaconChain` takes it as its `pubkey_cache`."""
+    from lighthouse_tpu_torch.state_processing.pubkey_cache import PubkeyCache
+
+    cache = PubkeyCache(device=device)
+    cache.import_new(state, decoded=[PublicKey(kp.pk.point, kp.pk.to_bytes()) for kp in keypairs])
+    return cache
+
+
 def chain_harness(spec, keypairs, backend="gpu", device="cuda", genesis=None):
     """The port's `Harness` on `keypairs` (`chain_keypairs`) at genesis,
-    its `PubkeyCache` filled from the points the keypairs hold -- the
-    entries `import_new` would decompress, without the decompressions.
-    `genesis`, a genesis state of these keys, is copied rather than built
-    again."""
+    its `PubkeyCache` filled by `chain_pubkey_cache`. `genesis`, a genesis
+    state of these keys, is copied rather than built again."""
     from lighthouse_tpu_torch.harness import Harness
     from lighthouse_tpu_torch.state_processing.genesis import interop_genesis_state
-    from lighthouse_tpu_torch.state_processing.pubkey_cache import PubkeyCache
 
     if genesis is None:
         state = interop_genesis_state([kp.pk.to_bytes() for kp in keypairs], 0, spec)
     else:
         state = genesis.copy()
-    cache = PubkeyCache(device=device)
-    cache.import_new(state, decoded=[PublicKey(kp.pk.point, kp.pk.to_bytes()) for kp in keypairs])
+    cache = chain_pubkey_cache(state, keypairs, device)
     return Harness.from_genesis(spec, keypairs, state, cache, backend=backend, device=device)
 
 

@@ -548,6 +548,17 @@ class VerificationBus:
             return self._program_shared_verify(subs, backend)
         return self._guarded_shared_verify(subs, backend)
 
+    @staticmethod
+    def _prepare_messages(subs, backend):
+        """The group's messages hashed to G2 before the guarded dispatch
+        (`bls.prepare_messages`), so that the watchdog, whose budget the
+        wall model predicts from the card's costs, does not time the
+        host's hashing (~16 ms a message on the H100's host: a 608-set
+        segment's 10 s against a 5 s budget)."""
+        from lighthouse_tpu_torch import bls
+
+        return bls.prepare_messages((st for s in subs for st in s.sets), backend)
+
     def _program_shared_verify(self, subs, backend):
         """The slot-program dispatch: the group's signature sets and each
         submission's staged settle run as ONE guarded program
@@ -569,6 +580,7 @@ class VerificationBus:
         effective = backend or bls.api.default_backend()
         journal = next((s.journal for s in subs if s.journal is not None), None)
         slot = next((s.slot for s in subs if s.slot is not None), None)
+        messages = self._prepare_messages(subs, effective)
         return program.run(
             backend=backend,
             journal=journal,
@@ -577,6 +589,7 @@ class VerificationBus:
                 max(1, program.total_live()), cold_risk=self._cold_risk(effective)
             ),
             device=self.device,
+            messages=messages,
         )
 
     def _cells_shared_verify(self, subs, backend):
@@ -625,14 +638,15 @@ class VerificationBus:
         )
         slot = next((s.slot for s in subs if s.slot is not None), None)
         canary_on = GUARD.canary_active(effective)
-        extra = [canary.bls_sentinels()[0]] if canary_on else None
+        extra = [canary.riding_sentinel(st for s in subs for st in s.sets)] if canary_on else None
+        messages = self._prepare_messages(subs, effective)
 
         def attempt(plan):
             if canary_on:
                 canary.check_pair(effective, plan, device=self.device)
             ok, record = bls.verify_signature_sets_shared(
                 submissions, backend=backend, seed=self.seed,
-                extra_sets=extra, device=self.device,
+                extra_sets=extra, device=self.device, messages=messages,
             )
             return plan.verdict(bool(ok)), record
 

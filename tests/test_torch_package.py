@@ -72,8 +72,14 @@ def test_no_environment_knobs(path):
             assert node.attr not in ("environ", "getenv"), _rel(path)
 
 
-# the block plane: its modules are in both scans above
+# the block plane and the chain runtime: their modules are in both scans above
 BLOCK_MODULES = [
+    "lighthouse_tpu_torch/beacon_chain/chain.py",
+    "lighthouse_tpu_torch/beacon_chain/data_availability_checker.py",
+    "lighthouse_tpu_torch/common/logging.py",
+    "lighthouse_tpu_torch/fork_choice/fork_choice.py",
+    "lighthouse_tpu_torch/light_client/producer.py",
+    "lighthouse_tpu_torch/store/hot_cold.py",
     "lighthouse_tpu_torch/harness.py",
     "lighthouse_tpu_torch/eth1/deposit_tree.py",
     "lighthouse_tpu_torch/state_processing/genesis.py",
@@ -88,8 +94,12 @@ def test_scans_cover_the_block_plane():
 
 
 def _block_entry_points():
+    from lighthouse_tpu_torch.beacon_chain import BeaconChain
+    from lighthouse_tpu_torch.beacon_chain.data_availability_checker import DataAvailabilityChecker
     from lighthouse_tpu_torch.harness import Harness
+    from lighthouse_tpu_torch.light_client import LightClientUpdateProducer
     from lighthouse_tpu_torch.state_processing import genesis, per_block, pubkey_cache
+    from lighthouse_tpu_torch.store import HotColdDB
 
     return {
         "Harness": Harness.__init__, "Harness.from_genesis": Harness.from_genesis,
@@ -100,6 +110,9 @@ def _block_entry_points():
         "initialize_beacon_state_from_eth1": genesis.initialize_beacon_state_from_eth1,
         "genesis_from_eth1_cache": genesis.genesis_from_eth1_cache,
         "chain_harness": T.chain_harness,
+        "BeaconChain": BeaconChain.__init__, "BeaconChain.from_checkpoint": BeaconChain.from_checkpoint,
+        "DataAvailabilityChecker": DataAvailabilityChecker.__init__,
+        "LightClientUpdateProducer": LightClientUpdateProducer.__init__, "HotColdDB": HotColdDB.__init__,
     }
 
 
@@ -109,7 +122,7 @@ def test_block_entry_points_default_to_the_card(name):
 
     params = inspect.signature(_block_entry_points()[name]).parameters
     assert params["device"].default == "cuda"
-    if "backend" in params and name.startswith(("Harness", "chain")):
+    if "backend" in params and name.startswith(("Harness", "chain", "BeaconChain", "DataAvailability")):
         assert params["backend"].default == "gpu"
 
 

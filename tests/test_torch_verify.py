@@ -208,3 +208,70 @@ def test_rlc_scalars_seeded_and_nonzero():
     assert bits.shape == (64, 64)
     back = (bits.astype(np.uint64) << np.arange(64, dtype=np.uint64)).sum(axis=1, dtype=np.uint64)
     assert np.array_equal(back, a)
+
+
+def test_extra_rows_follow_the_validators():
+    """A key of no validator (the canary's valid sentinel) takes an extra
+    row after the validator rows: once per key, named -2 - j, gathered as
+    its own words, and still so after more validators are appended."""
+    from lighthouse_tpu_torch.crypto.ref_curve import G1 as RG1
+    from lighthouse_tpu_torch.device_plane import canary
+    from lighthouse_tpu_torch.ops import field as fd
+
+    def words(p):
+        x, y = RG1.to_affine(p.point)
+        return fd.mont_words([x])[0], fd.mont_words([y])[0]
+
+    pubkeys = T.validator_pubkeys(5)
+    table = DevicePubkeyTable("cpu")
+    table.append(pubkeys[:3])
+    sentinel = canary.bls_sentinels()[0].pubkeys[0]
+    extra = table.extra(sentinel)
+    assert extra is table.extra(sentinel) and extra == sentinel and extra is not sentinel
+    assert extra.table is table and extra.validator_index == -2 and sentinel.table is not table
+    idx = table.gather_indices([[0, -1, extra.validator_index]])
+    assert idx.tolist() == [[1, 0, -2]]
+    for stage in ("before", "after"):
+        x, y = table.gather(idx)
+        for k, p in ((0, pubkeys[0]), (2, extra)):
+            assert x[0, k, 0].tolist() == words(p)[0].tolist(), (stage, k)
+            assert y[0, k, 0].tolist() == words(p)[1].tolist(), (stage, k)
+        assert not x[0, 1].any()
+        if stage == "before":
+            table.append(pubkeys[3:])
+    assert table.count == 5 and table.rows()[0].shape[0] == 5 + 1 + 1
+
+
+def test_sentinel_rides_the_table_path():
+    """The bus's rider (`canary.riding_sentinel`) keeps a batch of table
+    keys on the table path, and the batch verifies, so the sentinel's row
+    holds its key; a batch of untagged keys gets the sentinel as it is."""
+    from lighthouse_tpu_torch.device_plane import canary
+
+    table = DevicePubkeyTable("cpu")
+    pubkeys = T.validator_pubkeys(N_VALIDATORS)
+    table.append(pubkeys)
+    sets = T.committee_sets(pubkeys, 1, 2, seed=4)
+    rider = canary.riding_sentinel(sets)
+    assert [p.table for p in rider.pubkeys] == [table]
+    assert api.verify_signature_sets(sets + [rider], seed=2, device="cpu") is True
+    assert gpu_backend.LAST_HOST_STATS["indexed_path"] is True
+    assert canary.riding_sentinel(_flat()) is canary.bls_sentinels()[0]
+
+
+def test_prepared_messages_feed_the_marshal():
+    """`bls.prepare_messages` hashes each distinct message once on "gpu"
+    (None on the host backends), and the marshal takes its entries without
+    the backend's memo."""
+    from lighthouse_tpu_torch import bls
+
+    sets = T.committee_sets(T.validator_pubkeys(N_VALIDATORS), 2, 2, seed=5)
+    prepared = bls.prepare_messages(sets, "gpu")
+    assert sorted(prepared) == sorted({s.message for s in sets})
+    assert bls.prepare_messages(sets, "ref") is None and bls.prepare_messages(sets, "fake") is None
+    gpu_backend._MSG_CACHE.clear()
+    m = gpu_backend._marshal(sets, prepared)
+    assert not gpu_backend._MSG_CACHE
+    want = gpu_backend._marshal(sets)
+    for a, b in zip(m.msgs, want.msgs):
+        assert np.array_equal(a, b)

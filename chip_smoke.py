@@ -280,7 +280,30 @@ non-zero without its result line:
     every kernel of the fused program held at its own inputs (the block's
     sets and the sentinel, the six blobs' KZG lanes);
     then the slot-34 block held ("data unavailable") until its last
-    sidecar imports it;
+    sidecar imports it; the segment's chain is the chain of node S, which
+    7n's late node syncs from;
+ 7n. the node (lighthouse_tpu_torch/node.py BeaconNode over network/):
+    node_snappy, the native snappy library built; node_gossip: nodes A and
+    B on one GossipHub at 7k's genesis with 7m's filled cache, B's timer at
+    slot 1 (the head advanced ahead of the block); A publishes 7k's block,
+    B decodes it (the `gossip/decode` span) and its processor imports it:
+    B's head 7k's root, its post-state root 7k's, the sets 7k's, A's score
+    up by SCORE_VALID; then, B subscribed for the head slot's 64 duties,
+    7m's 64 singles, 64 with one forged and 64 aggregates on their subnet
+    and aggregate topics, each queue drained in one batch (the forged one
+    alone refused: the batch, the canary pair and the per-set call); a
+    frame that is not snappy (SCORE_INVALID_MESSAGE) and the block's frame
+    again (SCORE_DUPLICATE); indexed_path on every batch (the
+    `verify/device` spans); the split from the spans and the processor's
+    queue histograms. node_sync: a late node C at 7l's genesis adds peers
+    F (S's status, 7m's forged 4-block segment as its blocks_by_range
+    answer) and S, and run_range_sync: F asked first, its batch refused on
+    the card, F quarantined and scored, nothing of it stored; then S's 32
+    blocks in one segment batch: C on 7l's final root; the split from the
+    sync spans (`sync/batch`, `sync/blocks_by_range` a peer: the RPC's
+    store reads, `sync/import_segment`) and the frame codec on the 32
+    blocks timed apart; every kernel held at the batches 7m did not (the
+    forged batch's per-set call, the aggregates, F's segment);
  8. the tensor-core probe (lighthouse_tpu_torch.ops.mma_probe), int8 and
     bf16, exact against the probe's numpy check and the plain version,
     kernel and library call timed the same way (and each once more in one
@@ -294,7 +317,9 @@ non-zero without its result line:
     7l, with their launches there; a "chain" record with every kernel's
     launches in each arm of 7m and its times at the shapes of 7m's
     batches: canary_pair, gossip, chain_block, chain_segment, chain_blobs
-    and chain_blobs_kzg),
+    and chain_blobs_kzg; a "node" record with its launches in each arm of
+    7n and its times at node_forged_per_set, node_aggregates and
+    node_forged_segment),
     then {"ok": true,
     "device": {...}} as the last line.
 
@@ -701,10 +726,11 @@ def main() -> int:
 
     ladder_inputs = {}
 
-    def hold_batch(label, sets, seed):
+    def hold_batch(label, sets, seed, verdict=True):
         """Every kernel of one verify_signature_sets batch, step by step on
         the inputs the main path gives it, each held against its plain
-        version into records[label]."""
+        version into records[label]; the steps' verdict must be `verdict`
+        (False for a batch carrying a forged signature)."""
         m, km, sm, mags, negs, pk, sig, bits, pk_words = stage_inputs(sets, seed)
         S = sm.numel()
         K = m.k_bucket
@@ -775,7 +801,7 @@ def main() -> int:
             "fold_final_exp", lambda: final_exp.fold_final_exp(f),
             lambda: final_exp.fold_final_exp_plain(f), nb(f))
         value, ok = final_exp.fold_final_exp(f)
-        assert bool(ok), f"{label}: stage-by-stage verdict is not 1"
+        assert bool(ok) is verdict, f"{label}: stage-by-stage verdict is not {int(verdict)}"
 
     for label, sets, seed in (("grouped", slot, 3), ("flat", flat, 4)):
         hold_batch(label, sets, seed)
@@ -2921,6 +2947,8 @@ def main() -> int:
     from lighthouse_tpu_torch.beacon_chain.attestation_verification import VerifiedAttestation
     from lighthouse_tpu_torch.beacon_chain.chain import BlockError
     from lighthouse_tpu_torch.light_client import LightClientUpdateProducer
+    from lighthouse_tpu_torch.network.gossip import GossipHub
+    from lighthouse_tpu_torch.node import BeaconNode
     from lighthouse_tpu_torch.state_processing.helpers import get_domain
     from lighthouse_tpu_torch.store.hot_cold import COL_BLOCK
     from lighthouse_tpu_torch.types.helpers import compute_signing_root
@@ -2979,29 +3007,38 @@ def main() -> int:
                 "bus_wait_s": rec["bus_wait_s"],
                 "dispatches": [(d["label"], d["kind"]) for d in rec["dispatches"]]}
 
+    def hold_per_set(label, sets):
+        """Every kernel of one per-set call (gpu_backend.
+        verify_signature_sets_gpu_individual), step by step on its inputs,
+        each held against its plain version into records[label]; returns
+        the stage-by-stage verdicts. Keys in a table arrive affine; others
+        as points, through the Jacobian entry."""
+        pm = gpu_backend._marshal_flat(list(sets), pow2=False)
+        prec = records.setdefault(label, {})
+        emit("shapes", batch=label, lanes=pm.s_bucket, keys=pm.k_bucket, indexed=pm.table is not None)
+        for w, words in ((1, pm.pubkeys), (2, pm.sigs)) if pm.table is None else ((2, pm.sigs),):
+            pt = tuple(bv._lanes(c, dev) for c in words)
+            prec[f"jacobian_to_affine_g{w}"] = hold(
+                f"jacobian_to_affine_g{w}", lambda: curve_kernels.jacobian_to_affine(pt),
+                lambda: curve_kernels.jacobian_to_affine_plain(pt), nb(pt),
+                products=curve_kernels.affine_products(w, True, pt[0].shape[-1]))
+        agg_p = bv._aggregate_keys(gpu_backend._pubkeys(pm, dev), pm.key_mask, dev)
+        prec["to_affine_g1"] = hold(
+            "to_affine_g1", lambda: curve_kernels.to_affine(agg_p), lambda: curve_kernels.to_affine_plain(agg_p),
+            nb(agg_p), products=curve_kernels.affine_products(1, False, agg_p[0].shape[-1]))
+        g1p, g2p, pmask_p, _ = bv._individual_pairs(pm.msgs, pm.sigs, gpu_backend._pubkeys(pm, dev),
+                                                    pm.key_mask, pm.set_mask, dev)
+        prec["miller"] = hold("miller", lambda: miller.miller_loop(g1p, g2p, pmask_p),
+                              lambda: miller.miller_loop_plain(g1p, g2p, pmask_p), nb(g1p, g2p, pmask_p))
+        f_pair = miller.miller_loop(g1p, g2p, pmask_p)
+        prec["pair_final_exp"] = hold("pair_final_exp", lambda: final_exp.pair_final_exp(f_pair),
+                                      lambda: final_exp.pair_final_exp_plain(f_pair), nb(f_pair))
+        return final_exp.pair_final_exp(f_pair)[1].tolist()[:len(sets)]
+
     # the bus's canary pair, a per-set call on every chain dispatch: its two
     # sets' keys are in no table (the point path); each of its kernels held
     # at its shapes, and its verdicts [True, False]
-    pm = gpu_backend._marshal_flat(list(canary.bls_sentinels()), pow2=False)
-    prec = records.setdefault("canary_pair", {})
-    for w, words in ((1, pm.pubkeys), (2, pm.sigs)):
-        pt = tuple(bv._lanes(c, dev) for c in words)
-        prec[f"jacobian_to_affine_g{w}"] = hold(
-            f"jacobian_to_affine_g{w}", lambda: curve_kernels.jacobian_to_affine(pt),
-            lambda: curve_kernels.jacobian_to_affine_plain(pt), nb(pt),
-            products=curve_kernels.affine_products(w, True, pt[0].shape[-1]))
-    agg_p = bv._aggregate_keys(gpu_backend._pubkeys(pm, dev), pm.key_mask, dev)
-    prec["to_affine_g1"] = hold(
-        "to_affine_g1", lambda: curve_kernels.to_affine(agg_p), lambda: curve_kernels.to_affine_plain(agg_p),
-        nb(agg_p), products=curve_kernels.affine_products(1, False, agg_p[0].shape[-1]))
-    g1p, g2p, pmask_p, _ = bv._individual_pairs(pm.msgs, pm.sigs, gpu_backend._pubkeys(pm, dev),
-                                                pm.key_mask, pm.set_mask, dev)
-    prec["miller"] = hold("miller", lambda: miller.miller_loop(g1p, g2p, pmask_p),
-                          lambda: miller.miller_loop_plain(g1p, g2p, pmask_p), nb(g1p, g2p, pmask_p))
-    f_pair = miller.miller_loop(g1p, g2p, pmask_p)
-    prec["pair_final_exp"] = hold("pair_final_exp", lambda: final_exp.pair_final_exp(f_pair),
-                                  lambda: final_exp.pair_final_exp_plain(f_pair), nb(f_pair))
-    pair_ok = final_exp.pair_final_exp(f_pair)[1].tolist()
+    pair_ok = hold_per_set("canary_pair", canary.bls_sentinels())
     assert pair_ok == [True, False], f"canary pair: stage-by-stage verdicts {pair_ok}"
 
     # ---- a. the block (chain_block)
@@ -3135,11 +3172,14 @@ def main() -> int:
     hold_batch("gossip", singles_sets + [canary.riding_sentinel(singles_sets)], 61)
     ch["gossip"] = gs
 
-    # ---- c. the segment (chain_segment): 7l's 32 blocks on a fresh chain
+    # ---- c. the segment (chain_segment): 7l's 32 blocks on the chain of a
+    # fresh node, S, which serves them to 7n's late node C over its RPC
     seg_cache = T.chain_pubkey_cache(genesis, rkeys, "cuda")
+    sync_hub = GossipHub()
     t0 = time.perf_counter()
-    seg_chain = BeaconChain(genesis.copy(), bspec, backend="gpu", device="cuda", pubkey_cache=seg_cache)
+    node_s = BeaconNode("S", genesis, bspec, hub=sync_hub, backend="gpu", device="cuda", pubkey_cache=seg_cache)
     seg_construct_s = time.perf_counter() - t0
+    seg_chain = node_s.chain
     # the light-client producer's hook off here: chain_lc measures it once
     seg_chain.import_hooks.remove(seg_chain.light_client_producer.on_import)
     seg_submitted = []
@@ -3204,6 +3244,7 @@ def main() -> int:
     del f_chain
     (seg_sets,) = seg_submitted
     hold_batch("chain_segment", seg_sets + [canary.riding_sentinel(seg_sets)], 72)
+    seg_sets_fp = [set_fp(s) for s in seg_sets]
     del seg_sets, seg_submitted
 
     # ---- e. the light-client producer with device_check (chain_lc): the
@@ -3231,7 +3272,7 @@ def main() -> int:
     assert lc_rec["produced"] and lc_rec["branch_on_state_root"] and lc_rec["attested_root_equal"], lc_rec
     assert chain_launches["lc"].get("sha256_fold", 0) >= 1, chain_launches["lc"]
     ch["lc"] = lc_rec
-    del seg_chain, seg_cache, lc
+    del seg_chain, lc
 
     # ---- d. the blob block (chain_blobs): a mainnet-spec chain with
     # bellatrix at epoch 1 (the port's genesis cannot start at bellatrix), cut
@@ -3367,7 +3408,278 @@ def main() -> int:
     ch["phase_s"] = time.perf_counter() - t_phase
     records["chain_phase"] = ch
     records["chain_launches"] = chain_launches
-    del chain, chain_genesis, chain_cache, blocks, genesis, chain_keys, producer
+    del chain
+
+    # ------------------------------------------------- 7n. the node (node)
+    # BeaconNode (lighthouse_tpu_torch/node.py) with the network layer
+    # (network/: snappy, gossip, the RPC, the beacon processor, subnets,
+    # range sync). a. node_gossip: two nodes, A and B, on one GossipHub at
+    # 7k's genesis with 7m's filled cache; A publishes 7k's block and 7m's
+    # signed gossip objects, B decodes and queues them, and its processor
+    # drains each queue in one batch through its chain and bus; a frame
+    # that is not snappy and a republished one score A. b. node_sync: a
+    # late node C at 7l's genesis range-syncs from S (7m's segment node)
+    # and from a peer F that forwards S's status and answers with 7m's
+    # forged 4-block segment: a consistent hash chain, so its batch is
+    # refused on the card, not by response checks; then S's 32 blocks
+    from lighthouse_tpu_torch.network import beacon_processor as bproc
+    from lighthouse_tpu_torch.network import snappy_codec
+    from lighthouse_tpu_torch.network.gossip import (
+        SCORE_DUPLICATE, SCORE_INVALID_MESSAGE, SCORE_VALID, topic)
+
+    t_phase = time.perf_counter()
+    nd, node_launches = {"native_snappy": snappy_codec.native_available()}, {}
+    emit("node_snappy", native_available=nd["native_snappy"])
+    assert nd["native_snappy"], "node: the native snappy library did not build"
+
+    def spans_by_name():
+        """Every span completed since the tracer's last reset, by name (a
+        list of (duration_s, attrs) each); the tracer is reset."""
+        out = {}
+
+        def walk(d):
+            out.setdefault(d["name"], []).append((d["duration_s"], d.get("attrs", {})))
+            for c in d["children"]:
+                walk(c)
+        for d in tracing.TRACER.recent():
+            walk(d)
+        tracing.TRACER.reset()
+        return out
+
+    def device_batches(sp):
+        """The bus's device crossings in `sp`: (lanes, indexed, per-set)."""
+        return [(a.get("s_bucket"), a.get("indexed"), bool(a.get("individual")))
+                for _, a in sp.get("verify/device", [])]
+
+    def queue_totals():
+        """The beacon processor's wait and handler seconds by kind (its own
+        histograms)."""
+        return {k: (bproc._QUEUE_WAIT_SECONDS.labels(k).total, bproc._WORK_SECONDS.labels(k).total)
+                for k in ("gossip_block", "gossip_attestation", "gossip_aggregate")}
+
+    # ---- a. node_gossip
+    hub = GossipHub()
+    t0 = time.perf_counter()
+    node_a = BeaconNode("A", chain_genesis, bspec, hub=hub, backend="gpu", device="cuda", pubkey_cache=chain_cache)
+    node_b = BeaconNode("B", chain_genesis, bspec, hub=hub, backend="gpu", device="cuda", pubkey_cache=chain_cache)
+    ng = {"validators": BLOCK_V, "construct_s": time.perf_counter() - t0}
+    b_submitted = []
+    keep_submissions(node_b.chain, b_submitted)
+    # B's timer at the skipped slot 1: the head state advanced to slot 2
+    # ahead of the block (the node's pre-slot advance)
+    t0 = time.perf_counter()
+    node_b.on_slot(1)
+    ng["tick_1_s"] = time.perf_counter() - t0
+
+    def score(pid):
+        return hub.peers[pid].score
+
+    def drain(label, publish):
+        """Publish through A, drain B's processor: walls, device calls,
+        batches, launches, the spans' split and the processor's queueing."""
+        del b_submitted[:]
+        gpu_backend._MSG_CACHE.clear()
+        c0 = dict(gpu_backend.CALL_COUNTS)
+        q0 = queue_totals()
+        cuda_build.reset_launches()
+        tracing.TRACER.reset()
+        t0 = time.perf_counter()
+        publish()
+        t1 = time.perf_counter()
+        n = node_b.processor.process_pending()
+        t2 = time.perf_counter()
+        node_launches[label] = launched()
+        sp = spans_by_name()
+        q1 = queue_totals()
+        batches = device_batches(sp)
+        rec = {"publish_s": t1 - t0, "drain_s": t2 - t1, "drained_batches": n,
+               "device_calls": calls_since(c0), "device_batches": batches,
+               "decode_s": sum(d for d, _ in sp.get("gossip/decode", [])),
+               "decoded": len(sp.get("gossip/decode", [])),
+               "queue_wait_s": {k: q1[k][0] - q0[k][0] for k in q0 if q1[k][0] != q0[k][0]},
+               "handler_s": {k: q1[k][1] - q0[k][1] for k in q0 if q1[k][1] != q0[k][1]},
+               "hash_to_g2_s": sum(d for d, _ in sp.get("verify/hash_to_g2", [])),
+               "launches": node_launches[label]}
+        assert all(ix for _, ix, ind in batches if not ind), f"node {label}: a batch left the pubkey table"
+        return rec
+
+    score0 = score("A")
+    ng["block"] = drain("block", lambda: node_a.publish_block(block))
+    ng["block"].update(head_is_7k=node_b.chain.head_root == block_root_7k,
+                       post_root_equal_7k=cached_state_root(node_b.chain.head_state) == block_post_root,
+                       pre_advance_hits=node_b.chain.metrics["pre_advance_hits"],
+                       score_delta=score("A") - score0,
+                       same_sets_as_7k=len(b_submitted) == 1 and [set_fp(x) for x in b_submitted[0]] == block_sets_fp)
+    # slot 2 begins on B's clock; its pre-slot advance (for a slot-3 block
+    # this phase does not have) is left out
+    node_b.clock.set_slot(hslot)
+    ng["subnets"] = sorted({node_b.subscribe_for_attestation_duty(hslot, k) for k in range(BLOCK_COMMITTEES)})
+
+    def votes(member):
+        return [node_b.chain.fork_choice.votes.get(com[member]) is not None and
+                node_b.chain.fork_choice.votes[com[member]].next_root == node_b.chain.head_root
+                for com in committees]
+
+    def batch_events():
+        return [e["attrs"] for e in node_b.chain.journal.query(kind="attestation_batch")]
+
+    ng["singles"] = drain("singles", lambda: [node_a.publish_attestation(a) for a in batch1])
+    ng["singles"].update(votes=sum(votes(0)), same_sets_as_7m=len(b_submitted) == 1 and [
+        set_fp(x) for x in b_submitted[0]] == [set_fp(x) for x in singles_sets],
+        naive_pool=len(node_b.chain.naive_pool.aggregates_at_slot(hslot)))
+    ng["forged"] = drain("forged", lambda: [node_a.publish_attestation(a) for a in batch2])
+    forged_sets = list(b_submitted[0])
+    ng["forged"].update(refused_at=[i for i, v in enumerate(votes(1)) if not v])
+    ng["aggregates"] = drain("aggregates", lambda: [node_a.publish_aggregate(a) for a in aggregates])
+    agg_sets = list(b_submitted[0])
+    ng["aggregates"].update(op_pool=node_b.chain.op_pool.num_attestations(), sets=len(agg_sets))
+    ng["attestation_batches"] = [{k: e[k] for k in ("n", "accepted", "aggregated")} for e in batch_events()]
+    # a frame that is not valid snappy, then the block's frame again
+    s0 = score("A")
+    hub.publish("A", topic(node_a.fork_digest, "beacon_block"), b"\x0a\x01\x00")
+    s1 = score("A")
+    node_a.publish_block(block)
+    ng["scores"] = {"valid": ng["block"]["score_delta"], "invalid_frame": s1 - s0, "duplicate": score("A") - s1,
+                    "A": score("A"), "queued_after": sum(node_b.processor.queue_depths().values())}
+    print(smi, flush=True)
+    emit("node_gossip", **ng)
+    bk_n, s1n, fgn, agn = ng["block"], ng["singles"], ng["forged"], ng["aggregates"]
+    assert bk_n["head_is_7k"] and bk_n["post_root_equal_7k"] and bk_n["same_sets_as_7k"], bk_n
+    assert bk_n["score_delta"] == SCORE_VALID and bk_n["decoded"] == 1, bk_n
+    # one batch on the card and the bus's canary pair
+    assert bk_n["device_calls"] == {"batch": 1, "individual": 1}, bk_n["device_calls"]
+    assert s1n["decoded"] == BLOCK_COMMITTEES and s1n["drained_batches"] == 1 and s1n["same_sets_as_7m"], s1n
+    assert s1n["votes"] == BLOCK_COMMITTEES and s1n["naive_pool"] == BLOCK_COMMITTEES, s1n
+    assert s1n["device_calls"] == {"batch": 1, "individual": 1}, s1n["device_calls"]
+    # the forged single alone refused: the batch, the canary pair, the per-set call
+    assert fgn["drained_batches"] == 1 and fgn["refused_at"] == [GOSSIP_FORGED], fgn
+    assert fgn["device_calls"] == {"batch": 1, "individual": 2}, fgn["device_calls"]
+    assert agn["drained_batches"] == 1 and agn["op_pool"] == BLOCK_COMMITTEES and \
+        agn["sets"] == 3 * BLOCK_COMMITTEES, agn
+    assert agn["device_calls"] == {"batch": 1, "individual": 1}, agn["device_calls"]
+    n_c = BLOCK_COMMITTEES
+    assert ng["attestation_batches"] == [{"n": n_c, "accepted": n_c, "aggregated": False},
+                                         {"n": n_c, "accepted": n_c - 1, "aggregated": False},
+                                         {"n": n_c, "accepted": n_c, "aggregated": True}], ng["attestation_batches"]
+    assert ng["scores"]["invalid_frame"] == SCORE_INVALID_MESSAGE and \
+        ng["scores"]["duplicate"] == SCORE_DUPLICATE and ng["scores"]["queued_after"] == 0, ng["scores"]
+    # one-key batches fold no key lanes (SINGLES_KERNELS, the canary pair's
+    # per-set entry and its keys' Jacobian entry with them)
+    for label, need in (("block", BATCH_KERNELS), ("singles", SINGLES_KERNELS), ("forged", SINGLES_KERNELS),
+                        ("aggregates", BATCH_KERNELS)):
+        missing = [k for k in need if not node_launches[label].get(k)]
+        assert not missing, f"node_gossip {label}: the path launched no {missing}"
+    # every kernel at the node's batches: the block's and the singles' sets
+    # are 7m's chain_block and gossip holds' (byte-equal, asserted above);
+    # the forged batch's per-set call and the aggregates' batch here
+    per_set_ok = hold_per_set("node_forged_per_set", forged_sets)
+    assert per_set_ok == [i != GOSSIP_FORGED for i in range(BLOCK_COMMITTEES)], per_set_ok
+    hold_batch("node_aggregates", agg_sets + [canary.riding_sentinel(agg_sets)], 81)
+    nd["gossip"] = ng
+    del node_a, node_b, hub, b_submitted, forged_sets, agg_sets
+
+    # ---- b. node_sync
+    class ForgedPeer:
+        """A peer that forwards an honest peer's Status and answers
+        blocks_by_range with a forged segment: its blocks in the range."""
+
+        def __init__(self, honest, segment):
+            self.honest, self.segment, self.served = honest, segment, 0
+
+        def status(self, caller):
+            return self.honest.status(caller)
+
+        def blocks_by_range(self, caller, req):
+            self.served += 1
+            lo, hi = int(req.start_slot), int(req.start_slot) + int(req.count)
+            return [b for b in self.segment if lo <= int(b.message.slot) < hi]
+
+    forged_segment = blocks[:SEGMENT_FORGED_LEN - 1] + [forged_last]
+    forged_root = type(forged_last.message).hash_tree_root(forged_last.message)
+    t0 = time.perf_counter()
+    node_c = BeaconNode("C", genesis, bspec, hub=sync_hub, backend="gpu", device="cuda", pubkey_cache=seg_cache)
+    ns = {"validators": REPLAY_V, "construct_s": time.perf_counter() - t0}
+    # the light-client hook off, as on S (chain_lc measures it once)
+    node_c.chain.import_hooks.remove(node_c.chain.light_client_producer.on_import)
+    c_submitted = []
+    keep_submissions(node_c.chain, c_submitted)
+    sync_hub.join("F", lambda *a: None)  # F's score entry on the hub
+    peer_f = ForgedPeer(node_s.rpc, forged_segment)
+    for n in (node_s, node_c):  # the wall clock at the head's slot
+        n.clock.set_slot(REPLAY_SLOTS)
+    # F first: equal advertised heads keep insertion order
+    node_c.sync.add_peer("F", peer_f)
+    node_c.sync.add_peer("S", node_s.rpc)
+    gpu_backend._MSG_CACHE.clear()
+    c0 = dict(gpu_backend.CALL_COUNTS)
+    cuda_build.reset_launches()
+    tracing.TRACER.reset()
+    t0 = time.perf_counter()
+    imported = node_c.sync.run_range_sync()
+    wall = time.perf_counter() - t0
+    node_launches["sync"] = launched()
+    sp = spans_by_name()
+    c_root = cached_state_root(node_c.chain.head_state)
+    events = [(e.get("peer"), e["kind"], e.get("outcome"), e.get("attrs", {}).get("n_blocks"))
+              for e in node_c.chain.journal.query() if e["kind"] in ("sync_batch", "peer_quarantine")]
+    # the socket transport's frame codec on the 32 served blocks, timed
+    # apart (the in-process peers hand objects over)
+    t1 = time.perf_counter()
+    frames = [snappy_codec.frame_compress(b.to_bytes()) for b in blocks]
+    t2 = time.perf_counter()
+    back = [snappy_codec.frame_decompress(f) for f in frames]
+    t3 = time.perf_counter()
+
+    def by_peer(name):
+        out = {}
+        for d, a in sp.get(name, []):
+            out[a.get("peer")] = out.get(a.get("peer"), 0.0) + d
+        return out
+
+    imports = sp.get("sync/import_segment", [])
+    ns.update({
+        "imported": imported, "wall_s": wall, "slots_per_s": REPLAY_SLOTS / wall,
+        "head_slot": int(node_c.chain.head_state.slot), "final_root": c_root.hex(),
+        "final_root_equal_7l": c_root == producer_root, "head_equal_s": node_c.chain.head_root == node_s.chain.head_root,
+        "quarantined": sorted(node_c.sync.quarantined), "scores": {p: sync_hub.peers[p].score for p in ("F", "S")},
+        "forged_served": peer_f.served, "forged_block_stored": node_c.chain.store.get_block(forged_root) is not None,
+        "blocks_stored": sum(node_c.chain.store.get_block(type(b.message).hash_tree_root(b.message)) is not None
+                             for b in blocks),
+        "device_calls": calls_since(c0), "device_batches": device_batches(sp), "events": events,
+        "split": {"batches_s": sum(d for d, _ in sp.get("sync/batch", [])),
+                  "rpc_store_reads_s": by_peer("sync/blocks_by_range"),
+                  "import_segment_s": [d for d, _ in imports],
+                  "import_segment_blocks": [a.get("blocks") for _, a in imports],
+                  "hash_to_g2_s": sum(d for d, _ in sp.get("verify/hash_to_g2", [])),
+                  "frame_encode_s": t2 - t1, "frame_decode_s": t3 - t2,
+                  "frame_bytes": sum(len(f) for f in frames), "ssz_bytes": sum(len(b.to_bytes()) for b in blocks)},
+        "launches": node_launches["sync"]})
+    ns["same_sets_as_7m_segment"] = len(c_submitted) == 2 and [set_fp(x) for x in c_submitted[1]] == seg_sets_fp
+    print(smi, flush=True)
+    emit("node_sync", **ns)
+    assert back == [b.to_bytes() for b in blocks], "node_sync: a frame did not decode to its block"
+    assert ns["imported"] == REPLAY_SLOTS and ns["head_slot"] == REPLAY_SLOTS and ns["final_root_equal_7l"] and \
+        ns["head_equal_s"], ns
+    assert ns["quarantined"] == ["F"] and ns["forged_served"] == 1 and not ns["forged_block_stored"], ns
+    assert ns["scores"] == {"F": SCORE_INVALID_MESSAGE, "S": SCORE_VALID}, ns["scores"]
+    assert ns["blocks_stored"] == REPLAY_SLOTS and ns["same_sets_as_7m_segment"], ns
+    # F's batch refused on the card, then S's segment: each a batch and the
+    # bus's canary pair
+    assert ns["device_calls"] == {"batch": 2, "individual": 2}, ns["device_calls"]
+    assert [ix for _, ix, ind in ns["device_batches"] if not ind] == [True, True], ns["device_batches"]
+    assert ns["split"]["import_segment_blocks"] == [SEGMENT_FORGED_LEN, REPLAY_SLOTS], ns["split"]
+    missing = [k for k in BATCH_KERNELS if not node_launches["sync"].get(k)]
+    assert not missing, f"node_sync: the path launched no {missing}"
+    # every kernel at C's batches: S's segment is 7m's chain_segment hold's
+    # (byte-equal, asserted above); F's refused batch here
+    f_sets = c_submitted[0]
+    hold_batch("node_forged_segment", f_sets + [canary.riding_sentinel(f_sets)], 82, verdict=False)
+    nd["sync"] = ns
+    nd["phase_s"] = time.perf_counter() - t_phase
+    records["node_phase"] = nd
+    records["node_launches"] = node_launches
+    del node_c, node_s, sync_hub, peer_f, c_submitted, f_sets, frames, back
+    del chain_genesis, chain_cache, blocks, genesis, chain_keys, producer, seg_cache
 
     # ------------------------------------------- 8. tensor-core probe
     probe = {form: mma_probe.probe(form, dev) for form in mma_probe.FORMS}
@@ -3523,6 +3835,12 @@ def main() -> int:
         for label in ("canary_pair", "gossip", "chain_block", "chain_segment", "chain_blobs", "chain_blobs_kzg"):
             if name in records[label]:
                 entry["chain"][f"{label}_shapes"] = pick(records[label][name])
+        # the node's launches in each arm of phase 7n, and the kernel at the
+        # shapes of its batches that 7m did not hold
+        entry["node"] = {arm: launches_at.get(name, 0) for arm, launches_at in records["node_launches"].items()}
+        for label in ("node_forged_per_set", "node_aggregates", "node_forged_segment"):
+            if name in records[label]:
+                entry["node"][f"{label}_shapes"] = pick(records[label][name])
         if name in records["da"] and name != "rs_extend":  # at the cell verify's shapes
             entry["da"] = pick(records["da"][name]) | {
                 "launches": da_launches["verify"].get(name, 0),

@@ -183,17 +183,37 @@ def _conv(a, b):
     return skew.sum(-3, dtype=torch.int32)
 
 
+def _toeplitz(name: str, rows: int, device) -> torch.Tensor:
+    """The convolution by limb constant `name` as a (rows, NLIMBS) float64
+    matrix on `device`: T @ x is _conv(x, const) cut or zero-padded to
+    `rows` limbs, for x of NLIMBS limbs."""
+    key = ("toeplitz", name, rows, str(device))
+    t = _CONSTS.get(key)
+    if t is None:
+        col = const_col(name, "cpu")[:, 0].tolist()
+        mat = np.zeros((rows, NLIMBS))
+        for i in range(NLIMBS):
+            k = min(len(col), rows - i)
+            mat[i:i + k, i] = col[:k]
+        t = _CONSTS[key] = torch.tensor(mat, dtype=torch.float64, device=device)
+    return t
+
+
+def _conv_const(x, name: str, rows: int):
+    """_conv(x, const_col(name)) to `rows` limbs, as one float64 matrix
+    product: every partial sum (< 2^30) is an exact integer there."""
+    return torch.matmul(_toeplitz(name, rows, x.device), x.double()).to(torch.int32)
+
+
 def mul_lazy(a, b):
     """Stacked Montgomery product (..., S, NB, B) x (..., S, NB, B);
     inputs < 2.2p relaxed, output < 1.5p (tfield.mul_lazy)."""
     global FP_PRODUCTS
     a, b = torch.broadcast_tensors(a, b)
     FP_PRODUCTS += a.numel() // NB
-    dev = a.device
     t = _relax(_conv(a, b), 2 * NB)
-    m = _relax(_conv(t[..., :NLIMBS, :], const_col("nprime", dev)), NLIMBS)
-    mp = _conv(m, const_col("p", dev))
-    full = _relax(t + F.pad(mp, (0, 0, 0, 2 * NB - mp.shape[-2])), 2 * NB)
+    m = _relax(_conv_const(t[..., :NLIMBS, :], "nprime", NLIMBS), NLIMBS)
+    full = _relax(t + _conv_const(m, "p", 2 * NB), 2 * NB)
     # the low 32 limbs hold exactly 0 or R (see fieldb's docstring), so the
     # carry into the high half is whether any low limb is non-zero
     low_nonzero = (full[..., :NLIMBS, :] != 0).any(dim=-2)

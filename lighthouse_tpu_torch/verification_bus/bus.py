@@ -199,6 +199,9 @@ class VerificationBus:
         self.fill_target = int(fill_target)
         self.bulk_flush_live = DEFAULT_BULK_FLUSH_LIVE
         self.class_budgets = dict(DEFAULT_CLASS_BUDGETS)
+        # consumer -> zero-arg callable returning a budget in seconds;
+        # a chain with a slot clock wires its gossip budgets here
+        self.budget_fns: dict = {}
         # zero-arg callable -> bool: the node's queue-depth/shedding
         # pressure signal
         self.pressure_fn = None
@@ -444,6 +447,13 @@ class VerificationBus:
             if callable(remaining):
                 return max(0.0, float(remaining()))
             return max(0.0, float(deadline))
+        fn = self.budget_fns.get(consumer)
+        if fn is not None:
+            try:
+                return max(0.0, float(fn()))
+            # a broken budget source must not fail verification — fall back to the class default
+            except Exception:
+                pass
         return self.class_budgets.get(consumer, DEFAULT_BUDGET_S)
 
     def _hold_s(self, backend) -> float:

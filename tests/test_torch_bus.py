@@ -253,6 +253,25 @@ def test_constants_match_the_reference():
     assert pbus.VerificationBus(backend="gpu").stats()["max_hold_ms"] == 25.0
 
 
+def test_budget_sources_match_the_reference():
+    """A chain with a slot clock wires its gossip budgets into the bus
+    (`budget_fns`): an explicit deadline first, then the consumer's
+    source, then the class budget; a source that raises falls back."""
+
+    def boom():
+        raise RuntimeError("broken clock")
+
+    out = []
+    for mod in (rbus, pbus):
+        bus = mod.VerificationBus(backend="fake")
+        bus.budget_fns["gossip_single"] = lambda: 0.3
+        bus.budget_fns["sidecar_header"] = boom
+        out.append([bus._budget_for(c, d) for c, d in (
+            ("gossip_single", None), ("gossip_single", 0.05), ("sidecar_header", None),
+            ("sync_segment", None), ("oppool", -1.0))])
+    assert out[0] == out[1] and out[1][0] == 0.3
+
+
 def test_wall_model_carries_the_cards_figures():
     """Seeded with the card's fixed and per-set costs, never the TPU's; the
     learning rule is the reference's."""

@@ -93,11 +93,26 @@ def test_scans_cover_the_block_plane():
     assert set(BLOCK_MODULES) <= {_rel(p) for p in SOURCES}
 
 
+# the node and its network layer: in both scans above too
+NODE_MODULES = [
+    "lighthouse_tpu_torch/common/slot_clock.py",
+    "lighthouse_tpu_torch/node.py",
+] + [f"lighthouse_tpu_torch/network/{m}.py" for m in (
+    "__init__", "snappy_codec", "gossip", "rpc", "shedding", "beacon_processor", "discovery",
+    "subnet_service", "fault_injection", "sync", "socket_net")]
+
+
+def test_scans_cover_the_node():
+    assert set(NODE_MODULES) <= {_rel(p) for p in SOURCES}
+    assert os.path.exists(os.path.join(PKG, "native", "snappy.c"))
+
+
 def _block_entry_points():
     from lighthouse_tpu_torch.beacon_chain import BeaconChain
     from lighthouse_tpu_torch.beacon_chain.data_availability_checker import DataAvailabilityChecker
     from lighthouse_tpu_torch.harness import Harness
     from lighthouse_tpu_torch.light_client import LightClientUpdateProducer
+    from lighthouse_tpu_torch.node import BeaconNode
     from lighthouse_tpu_torch.state_processing import genesis, per_block, pubkey_cache
     from lighthouse_tpu_torch.store import HotColdDB
 
@@ -113,6 +128,7 @@ def _block_entry_points():
         "BeaconChain": BeaconChain.__init__, "BeaconChain.from_checkpoint": BeaconChain.from_checkpoint,
         "DataAvailabilityChecker": DataAvailabilityChecker.__init__,
         "LightClientUpdateProducer": LightClientUpdateProducer.__init__, "HotColdDB": HotColdDB.__init__,
+        "BeaconNode": BeaconNode.__init__,
     }
 
 
@@ -122,7 +138,8 @@ def test_block_entry_points_default_to_the_card(name):
 
     params = inspect.signature(_block_entry_points()[name]).parameters
     assert params["device"].default == "cuda"
-    if "backend" in params and name.startswith(("Harness", "chain", "BeaconChain", "DataAvailability")):
+    if "backend" in params and name.startswith(("Harness", "chain", "BeaconChain", "BeaconNode",
+                                                "DataAvailability")):
         assert params["backend"].default == "gpu"
 
 
@@ -316,6 +333,15 @@ def test_epoch_and_slasher_entry_points_default_to_the_card(call, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
     assert ran == []
+
+
+def test_beacon_node_without_gpu_raises():
+    """The node's default device raises before any chain is built."""
+    _needs_no_gpu()
+    from lighthouse_tpu_torch.node import BeaconNode
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BeaconNode("n", *_altair_state(0))
 
 
 def test_cuda_table_without_gpu_raises():

@@ -29,7 +29,6 @@ from lighthouse_tpu.ops import fieldb as fb
 from lighthouse_tpu.ops import pairing as jpairing
 from lighthouse_tpu.ops import tcurve, tfexp as jfe, tower as jtower, tpairing as jtp
 from lighthouse_tpu.ops import window_ladder as jwl
-from lighthouse_tpu.ops.pallas_ladder import ladder_pallas
 from lighthouse_tpu_torch.ops import batch_verify, curve, field as fd
 from lighthouse_tpu_torch.ops import final_exp, ladder, miller, tfexp, tpairing
 from lighthouse_tpu_torch.ops import window_ladder as wl
@@ -147,6 +146,10 @@ def test_pallas_chain_and_w2_kernels_match(name, kind):
     """The JAX package's Pallas ladder kernels `_ladder_kernel` ("chain")
     and `_ladder_kernel_w2` ("w2") in interpret mode against K1's plain
     forms, projective X:Y:Z exactly, at 64 bits."""
+    # imported here: Pallas costs each collecting process ~1.7 s, and
+    # tier-1 collects this file only to deselect it
+    from lighthouse_tpu.ops.pallas_ladder import ladder_pallas
+
     pt, bits = _ladder_inputs(name)
     want = ladder_pallas(
         tuple(map(jnp.asarray, pt)), jnp.asarray(bits), group_name=name, block_b=4,

@@ -101,7 +101,8 @@ def _jax_words(pt):
 @jax.jit
 def _jax_ladder(acc, addend, bits):
     """batch_verify.g2_points_in_subgroup's scan step (:457-463) over
-    `bits`, every step's (acc, addend) kept."""
+    `bits` (steps, lanes): each lane its own bit a step; every step's
+    (acc, addend) kept."""
     G = jcurve.G2
     batch = acc[0].shape[:-2]
 
@@ -133,13 +134,12 @@ def test_order13_point():
     assert not RG2.in_subgroup(Q)
 
 
-def test_jacobian_step_matches_jax():
-    """One step with bit 1: acc + addend and the addend's doubling, on every
-    case of JacobianGroup.add's selects, word for word."""
+def _step_cases():
+    """(acc, addend) on every case of JacobianGroup.add's selects."""
     g = RG2.generator
     p = RG2.add(RG2.mul_scalar(g, 5), g)  # Z != 1
     q = RG2.mul_scalar(g, 9)
-    cases = [
+    return [
         (p, q),  # generic, both Z != 1
         (p, p),  # P + P, one representation
         (p, _rescale(p, 7)),  # P + P, two representations
@@ -149,8 +149,45 @@ def test_jacobian_step_matches_jax():
         (INF, INF),
         (_order13(), RG2.add(_order13(), _order13())),  # Q + 2Q on the twist's 13-torsion
     ]
+
+
+def _short_ladder_cases():
+    """(acc, addend) of the short ladder: the order-13 point (the doubling
+    and infinity branches fire inside the run), its negation, Q from acc = Q
+    (P + (-P) inside the run), 2Q, two subgroup points and an SSWU point."""
+    Q = _order13()
+    g = RG2.generator
+    sswu = _sswu(b"ladder", 1)[0]
+    addends = [Q, RG2.neg(Q), Q, RG2.add(Q, Q), RG2.mul_scalar(g, 3),
+               RG2.add(RG2.mul_scalar(g, 11), g), sswu, Q]
+    accs = [INF, INF, Q, INF, INF, INF, INF, RG2.add(Q, Q)]
+    return list(zip(accs, addends))
+
+
+STEP_BITS = [1] + [0] * 7
+
+
+@functools.cache
+def _jax_histories():
+    """Both tests' lanes side by side through ONE jitted scan (each lane
+    its own bits), so a process traces the graph once: {name: (the
+    lanes' (acc, addend) history, their cases)}."""
+    named = {"step": (_step_cases(), STEP_BITS), "ladder": (_short_ladder_cases(), LADDER_BITS)}
+    cases = [c for cs, _ in named.values() for c in cs]
+    bits = np.array([b for cs, bs in named.values() for b in [bs] * len(cs)], dtype=np.int32).T
+    hist = _jax_ladder(_jax([c[0] for c in cases]), _jax([c[1] for c in cases]), jnp.asarray(bits))
+    out, lo = {}, 0
+    for name, (cs, _) in named.items():
+        out[name] = (tuple(tuple(c[:, lo:lo + len(cs)] for c in pt) for pt in hist), cs)
+        lo += len(cs)
+    return out
+
+
+def test_jacobian_step_matches_jax():
+    """One step with bit 1: acc + addend and the addend's doubling, on every
+    case of JacobianGroup.add's selects, word for word."""
+    hist, cases = _jax_histories()["step"]
     accs, addends = [c[0] for c in cases], [c[1] for c in cases]
-    hist = _jax_ladder(_jax(accs), _jax(addends), jnp.asarray([1] + [0] * 7, jnp.int32))
     acc0, add0 = _port(accs), _port(addends)
     _assert_equal_steps(hist, acc0, add0, [1])
     # and the group laws, against the reference curve
@@ -166,17 +203,9 @@ def test_jacobian_step_matches_jax():
 
 def test_short_ladder_matches_jax():
     """Eight steps of the subgroup ladder over the bits of 179, every step
-    word for word, on the order-13 point (the doubling and infinity
-    branches fire inside the run), its negation, Q from acc = Q (P + (-P)
-    inside the run), 2Q, two subgroup points and an SSWU point."""
-    Q = _order13()
-    g = RG2.generator
-    sswu = _sswu(b"ladder", 1)[0]
-    addends = [Q, RG2.neg(Q), Q, RG2.add(Q, Q), RG2.mul_scalar(g, 3),
-               RG2.add(RG2.mul_scalar(g, 11), g), sswu, Q]
-    accs = [INF, INF, Q, INF, INF, INF, INF, RG2.add(Q, Q)]
-    hist = _jax_ladder(_jax(accs), _jax(addends), jnp.asarray(LADDER_BITS, jnp.int32))
-    _assert_equal_steps(hist, _port(accs), _port(addends), LADDER_BITS)
+    word for word, on `_short_ladder_cases`."""
+    hist, cases = _jax_histories()["ladder"]
+    _assert_equal_steps(hist, _port([c[0] for c in cases]), _port([c[1] for c in cases]), LADDER_BITS)
 
 
 def _check_points():
